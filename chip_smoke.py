@@ -5,12 +5,11 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
-   the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc
-   (sources built in parallel).
-2. Kernels: each kernel against its plain PyTorch version on the card, at
-   the training path's shapes (llama_small: B=8, S=1024, Hq=12, Hkv=4,
-   D=64, bf16) and at further shapes (fp32 D=128, non-causal, a ragged
-   length); timed with CUDA events beside its plain version, the one-call
+   the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc.
+2. Kernels: each kernel against its plain PyTorch version on the card,
+   element by element (``TOL``), at the training path's shapes
+   (llama_small: B=8, S=1024, Hq=12, Hkv=4, D=64, bf16) and at further
+   shapes (fp32 D=64 and D=128, non-causal, a ragged length); timed with CUDA events beside its plain version, the one-call
    PyTorch equivalent (``F.scaled_dot_product_attention``, a yardstick the
    port never calls) and the least time the card could take. Prints one
    ``{"kernels": [...]}`` line. Also the model with flash attention against
@@ -29,14 +28,11 @@ or of the JAX package.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
-import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -68,24 +64,19 @@ def card_line() -> str:
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
-SOURCES = ["flash_attention.cu"]
+SOURCE = "flash_attention.cu"
 
 
-def build_kernels() -> dict:
+def build_kernels() -> None:
     from torchft_tpu_torch.ops import _cuda_build
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(_cuda_build.build, SOURCES))
+    _cuda_build.build(SOURCE)
     seconds = time.monotonic() - t0
-    report = {}
-    for src in SOURCES:
-        ptxas = _cuda_build.BUILD_DIR / f"{Path(src).stem}.ptxas.txt"
-        if ptxas.exists():
-            (OUT / ptxas.name).write_text(ptxas.read_text())
-        report[src] = _cuda_build.build_seconds.get(src, 0.0)
-    print(f"build: {json.dumps(report)} wall {seconds:.1f}s", flush=True)
-    return report
+    ptxas = _cuda_build.BUILD_DIR / f"{Path(SOURCE).stem}.ptxas.txt"
+    if ptxas.exists():
+        (OUT / ptxas.name).write_text(ptxas.read_text())
+    print(f"build: {SOURCE} {seconds:.1f}s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -144,10 +135,42 @@ def bounds(B, S, Hq, Hkv, D, dtype_name, causal):
     return out
 
 
-def check_case(B, S, Hq, Hkv, D, dtype, causal, tol, timed: bool, seed: int):
+# Element-wise limit: |kernel - plain| <= tol * (|plain| + T) + 1e-5 *
+# rms(plain), T the element's sum of |product terms|
+# (flash_attention_term_sums; 1 for lse, a log). In bf16 the two sides
+# round P or dS at different points (the kernel the online softmax's
+# unnormalised P) and each rounds its output once, each rounding off by up
+# to 2^-8 of its value, so they may differ by 2^-7 * (|plain| + T): tol is
+# 1.28 * 2^-7. Where terms cancel, T is far larger than the element. fp32
+# outputs and every lse (fp32 on both sides) differ by summation order and
+# __expf only. The rms floor covers elements whose plain value and T are
+# exactly 0 (dS = 0 in row 0).
+TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+RMS_FLOOR = 1e-5
+
+
+def compare(a, b, terms, tol: float) -> dict:
+    """max abs error, rms of the plain output, and the worst share of its
+    allowed error any element uses (> 1 fails)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError("kernel output not finite")
+    diff = (a - b).abs()
+    rms = float(b.square().mean().sqrt())
+    allowed = tol * (b.abs() + terms) + RMS_FLOOR * rms
+    return {
+        "max_abs_err": float(diff.max()),
+        "ref_rms": rms,
+        "share": float((diff / allowed).max()),
+    }
+
+
+def check_case(B, S, Hq, Hkv, D, dtype, causal, timed: bool, seed: int):
     """Runs the three kernels and their plain versions on one input set;
-    returns {kernel: record}. Raises on a disagreement beyond ``tol``
-    (max |kernel - plain| <= tol * max |plain| per output)."""
+    returns {kernel: record}. Raises where any element of any output lies
+    outside its limit (``TOL``; lse always at the fp32 one)."""
     import torch
     import torch.nn.functional as F
 
@@ -170,31 +193,42 @@ def check_case(B, S, Hq, Hkv, D, dtype, causal, tol, timed: bool, seed: int):
     dq_r = fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal)
     dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal)
 
-    def err(a, b):
-        a, b = a.float(), b.float()
-        if not torch.isfinite(a).all():
-            raise AssertionError("kernel output not finite")
-        return float((a - b).abs().max()), float(b.abs().max())
-
-    errs = {
-        "flash_fwd": [err(out, out_r), err(lse, lse_r)],
-        "flash_bwd_dq": [err(dq, dq_r)],
-        "flash_bwd_dkv": [err(dk, dk_r), err(dv, dv_r)],
+    terms = fa.flash_attention_term_sums(q, k, v, dout, lse, delta, causal)
+    dtype_name = str(dtype)[6:]
+    tol, tol32 = TOL[dtype_name], TOL["float32"]
+    outputs = {
+        "flash_fwd": {
+            "out": (out, out_r, terms["out"], tol),
+            "lse": (lse, lse_r, 1.0, tol32),
+        },
+        "flash_bwd_dq": {"dq": (dq, dq_r, terms["dq"], tol)},
+        "flash_bwd_dkv": {
+            "dk": (dk, dk_r, terms["dk"], tol),
+            "dv": (dv, dv_r, terms["dv"], tol),
+        },
     }
-    case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {str(dtype)[6:]} causal={causal}"
+    case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {dtype_name} causal={causal}"
     records = {}
-    for name, pairs in errs.items():
-        max_err = max(e for e, _ in pairs)
-        for e, ref in pairs:
-            if not e <= tol * max(ref, 1.0):
+    readings = []
+    for name, outs in outputs.items():
+        got = {o: compare(*args) for o, args in outs.items()}
+        for o, r in got.items():
+            readings.append(
+                f"{o} err {r['max_abs_err']:.3g} rms {r['ref_rms']:.3g} "
+                f"share {r['share']:.3g}"
+            )
+            if not r["share"] <= 1.0:
                 raise AssertionError(
                     f"{name} disagrees with its plain version at {case}: "
-                    f"max abs err {e} > {tol} x max(|ref|={ref}, 1)"
+                    f"{o} |kernel - plain| reaches {r['share']:.3g}x of "
+                    f"{outs[o][3]} * (|plain| + T) + {RMS_FLOOR} * rms(plain) "
+                    f"(max abs err {r['max_abs_err']}, rms {r['ref_rms']})"
                 )
-        records[name] = {"max_abs_err": max_err, "tol_rel": tol}
-    print(f"kernels ok at {case}: "
-          + ", ".join(f"{n} err {r['max_abs_err']:.3g}" for n, r in records.items()),
-          flush=True)
+        records[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in got.values()),
+            "tol_share": max(r["share"] for r in got.values()),
+        }
+    print(f"kernels ok at {case}: " + ", ".join(readings), flush=True)
     if not timed:
         return records
 
@@ -289,12 +323,14 @@ def kernel_phase() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     bf16, fp32 = torch.bfloat16, torch.float32
     # The training path's shape, timed.
-    main = check_case(8, 1024, 12, 4, 64, bf16, True, 2e-2, timed=True, seed=0)
-    # Further shapes: fp32 at D=128, non-causal, a ragged length, D=16/32.
-    check_case(2, 1024, 8, 2, 128, fp32, True, 1e-4, timed=False, seed=1)
-    check_case(2, 512, 4, 4, 64, bf16, False, 2e-2, timed=False, seed=2)
-    check_case(1, 200, 4, 2, 32, fp32, True, 1e-4, timed=False, seed=3)
-    check_case(2, 128, 4, 2, 16, bf16, True, 2e-2, timed=False, seed=4)
+    main = check_case(8, 1024, 12, 4, 64, bf16, True, timed=True, seed=0)
+    # Further shapes: the path's head_dim in fp32, fp32 at D=128,
+    # non-causal, a ragged length, D=16/32.
+    check_case(2, 1024, 12, 4, 64, fp32, True, timed=False, seed=5)
+    check_case(2, 1024, 8, 2, 128, fp32, True, timed=False, seed=1)
+    check_case(2, 512, 4, 4, 64, bf16, False, timed=False, seed=2)
+    check_case(1, 200, 4, 2, 32, fp32, True, timed=False, seed=3)
+    check_case(2, 128, 4, 2, 16, bf16, True, timed=False, seed=4)
     model_check()
     return main
 
@@ -353,95 +389,7 @@ def path_phase() -> dict:
     return results
 
 
-def _union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
-def profile_phase() -> dict:
-    """One replica group alone (min-replicas 1) for 8 steps with the
-    trainer's torch.profiler window (TORCHFT_TRACE_DIR) over steps 4-6;
-    sums device time by kernel from the Chrome trace and the device's busy
-    share of the window. Not part of the default run."""
-    import shutil
-
-    from torchft_tpu_torch.coordination import LighthouseServer
-
-    out = OUT / "profile"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    lighthouse = LighthouseServer(bind="127.0.0.1:0", min_replicas=1)
-    try:
-        env = dict(
-            os.environ, TORCHFT_LIGHTHOUSE=lighthouse.address(),
-            REPLICA_GROUP_ID="0", PYTHONPATH=str(REPO),
-            TORCHFT_TRACE_DIR=str(out / "trace"), TORCHFT_TRACE_START="4",
-            TORCHFT_TRACE_COUNT="3",
-        )
-        proc = subprocess.run(
-            [sys.executable, "-m", "torchft_tpu_torch.train_hsdp", *PATH_ARGS,
-             "--min-replicas", "1", "--result-dir", str(out)],
-            cwd=str(REPO), env=env, capture_output=True, text=True,
-            timeout=600,
-        )
-        (out / "train.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"profiled trainer exited {proc.returncode}")
-    finally:
-        lighthouse.shutdown()
-    (trace_file,) = (out / "trace").glob("*.json")
-    events = [
-        e for e in json.loads(trace_file.read_text())["traceEvents"]
-        if e.get("ph") == "X" and "dur" in e
-    ]
-    device = [
-        e for e in events
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-    ]
-    if not device:
-        raise AssertionError("the profiler recorded no device activity")
-    t0 = min(e["ts"] for e in events)
-    t1 = max(e["ts"] + e["dur"] for e in events)
-    by_name: dict = {}
-    for e in device:
-        rec = by_name.setdefault(e["name"], [0, 0.0])
-        rec[0] += 1
-        rec[1] += e["dur"]
-    steps = 3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    summary = {
-        "window_ms": (t1 - t0) / 1e3,
-        "device_busy_ms": _union_us(
-            (e["ts"], e["ts"] + e["dur"]) for e in device
-        ) / 1e3,
-        "device_sum_ms_per_step": sum(e["dur"] for e in device) / 1e3 / steps,
-        "top_per_step": [
-            {"name": n[:90], "calls": c / steps, "ms": us / 1e3 / steps}
-            for n, (c, us) in top
-        ],
-        "result": json.loads((out / "group0.json").read_text()),
-    }
-    summary["device_busy_share"] = summary["device_busy_ms"] / summary["window_ms"]
-    (out / "summary.json").write_text(json.dumps(summary, indent=1))
-    del summary["result"]["step_ms"]
-    print("profile: " + json.dumps(summary), flush=True)
-    return summary
-
-
 def main() -> int:
-    parser = argparse.ArgumentParser()
-    parser.add_argument(
-        "--phases", default="kernels,path",
-        help="comma list of phases after the build: kernels, path, "
-        "profile (not in the default run)",
-    )
-    args = parser.parse_args()
-    phases = set(args.phases.split(","))
-
     import torch
 
     if not torch.cuda.is_available():
@@ -457,14 +405,9 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     build_kernels()
 
-    records = kernel_phase() if "kernels" in phases else {}
-    path = path_phase() if "path" in phases else {}
-    if "profile" in phases:
-        profile_phase()
+    records = kernel_phase()
+    path = path_phase()
 
-    if phases != {"kernels", "path"}:
-        print(f"partial run ({sorted(phases)}): no result line", flush=True)
-        return 0
     kernels = []
     for name, rec in records.items():
         launches = sum(r["kernel_launches"][name] for r in path.values())

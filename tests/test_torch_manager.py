@@ -28,7 +28,7 @@ def lighthouse():
     server.shutdown()
 
 
-def _replica(rank: int, addr: str, steps: int):
+def _replica(rank: int, addr: str, steps: int, stale_pg_error=None):
     params = {"w": torch.zeros(4, 3), "b": torch.zeros(5, dtype=torch.bfloat16)}
 
     def load(state):
@@ -51,9 +51,15 @@ def _replica(rank: int, addr: str, steps: int):
         max_retries=4,
     )
     ddp = DistributedDataParallel(manager)
+    if stale_pg_error is not None:
+        # What a peer's death leaves on the pg until the next quorum
+        # reconfigures it.
+        manager._pg._errored = stale_pg_error
     seen = []
+    attempts = 0
     try:
         while manager.current_step() < steps:
+            attempts += 1
             manager.start_quorum()
             step = manager.current_step()
             # Replica r contributes (r + 1) * (step + 1).
@@ -71,22 +77,28 @@ def _replica(rank: int, addr: str, steps: int):
                     )
                     params["w"] += grads["w"]
                     params["b"] += grads["b"]
-        return {k: v.clone() for k, v in params.items()}, seen
+        return {k: v.clone() for k, v in params.items()}, seen, attempts
     finally:
         manager.shutdown()
+
+
+def _two_replicas(addr: str, steps: int, stale_pg_error=None):
+    pool = ThreadPoolExecutor(max_workers=2)
+    try:
+        futs = [
+            pool.submit(_replica, r, addr, steps, stale_pg_error)
+            for r in range(2)
+        ]
+        return [f.result(timeout=120) for f in futs]
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 # Covers a first-use build of the C++ binaries (~1 min) in a fresh checkout.
 @pytest.mark.timeout(300)
 def test_two_replicas_quorum_allreduce_commit(lighthouse):
     steps = 3
-    pool = ThreadPoolExecutor(max_workers=2)
-    try:
-        futs = [pool.submit(_replica, r, lighthouse.address(), steps) for r in range(2)]
-        results = [f.result(timeout=120) for f in futs]
-    finally:
-        pool.shutdown(wait=False, cancel_futures=True)
-    (p0, seen0), (p1, seen1) = results
+    (p0, seen0, _), (p1, seen1, _) = _two_replicas(lighthouse.address(), steps)
     for k in p0:
         torch.testing.assert_close(p0[k], p1[k], rtol=0, atol=0)
     assert len(seen0) == steps
@@ -100,6 +112,27 @@ def test_two_replicas_quorum_allreduce_commit(lighthouse):
         assert b_dtype == torch.bfloat16
         assert (val, b_val, n) == (pytest.approx(w), pytest.approx(b), 2)
     assert float(p0["w"][0, 0]) == pytest.approx(0.5 + 3.0 + 4.5)
+
+
+@pytest.mark.timeout(300)
+def test_stale_pg_error_does_not_skip_heal_sources_collective(lighthouse):
+    """Both groups start with the error a failed previous quorum leaves on
+    the pg. allreduce waits for this step's quorum, whose reconfigure clears
+    it, before it checks errored(): the heal source (replica 0 at step 0)
+    runs the collective that holds it until replica 1 has fetched its
+    checkpoint, and step 0 commits on the first attempt. Checked before the
+    quorum, the stale error made the source skip the collective and vote
+    against the commit."""
+    stale = ConnectionResetError("peer closed the ring in the last quorum")
+    (p0, seen0, tries0), (p1, seen1, tries1) = _two_replicas(
+        lighthouse.address(), 1, stale
+    )
+    assert (tries0, tries1) == (1, 1)
+    assert seen0 == seen1
+    ((_, _, val, _, b_val, n),) = seen0
+    assert (val, b_val, n) == (pytest.approx(0.5), pytest.approx(0.5), 2)
+    for k in p0:
+        torch.testing.assert_close(p0[k], p1[k], rtol=0, atol=0)
 
 
 class _RecordingManager:

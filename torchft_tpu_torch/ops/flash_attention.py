@@ -35,6 +35,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_bwd_reference",
     "flash_attention_fwd_reference",
+    "flash_attention_term_sums",
     "flash_bwd_dkv",
     "flash_bwd_dkv_reference",
     "flash_bwd_dq",
@@ -160,6 +161,39 @@ def flash_attention_bwd_reference(
     dq = flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal)
     dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal)
     return dq, dk, dv
+
+
+def flash_attention_term_sums(
+    q, k, v, dout, lse, delta, causal: bool = True
+) -> Dict[str, torch.Tensor]:
+    """For each element of out, dq, dk and dv, the sum of the absolute
+    values of the product terms that make it: |P|.|V|, |dS|.|K| * scale,
+    |dS|^T.|Q| * scale and |P|^T.|dO| (GQA groups summed), fp32 in the
+    outputs' layouts. Two implementations of this math that round P or dS
+    to bf16 at different points (the kernel rounds the online softmax's
+    unnormalised P, the plain version the normalised one) differ by up to
+    2^-7 of it (each rounding is off by up to 2^-8) before their outputs
+    are rounded; where terms cancel it is far larger than the element
+    itself."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, dof, p, ds = _bwd_terms(q, k, v, dout, lse, delta, causal)
+    vf = _heads_first(v, g)
+    ds = ds.abs()
+
+    def layout(x: torch.Tensor, heads: int) -> torch.Tensor:
+        if heads != Hq:
+            x = x.view(B, heads, g, S, D).sum(dim=2)
+        return x.permute(0, 2, 1, 3).contiguous()
+
+    return {
+        "out": layout(torch.matmul(p, vf.abs()), Hq),
+        "dq": layout(torch.matmul(ds, kf.abs()) * scale, Hq),
+        "dk": layout(torch.matmul(ds.transpose(-1, -2), qf.abs()) * scale, Hkv),
+        "dv": layout(torch.matmul(p.transpose(-1, -2), dof.abs()), Hkv),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -5,22 +5,34 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
-   the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc.
-2. Kernels: each kernel against its plain PyTorch version on the card,
+   the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc, one
+   nvcc per source, all started together.
+2. Flash kernels: each kernel against its plain PyTorch version on the card,
    element by element (``TOL``), at the training path's shapes
    (llama_small: B=8, S=1024, Hq=12, Hkv=4, D=64, bf16) and at further
-   shapes (fp32 D=64 and D=128, non-causal, a ragged length); timed with CUDA events beside its plain version, the one-call
-   PyTorch equivalent (``F.scaled_dot_product_attention``, a yardstick the
-   port never calls) and the least time the card could take. Prints one
-   ``{"kernels": [...]}`` line. Also the model with flash attention against
-   the model with dense attention on the same weights.
-3. Path: the C++ lighthouse and two replica groups of
+   shapes (fp32 D=64 and D=128, non-causal, a ragged length); timed with
+   CUDA events beside its plain version, the one-call PyTorch equivalent
+   (``F.scaled_dot_product_attention``, a yardstick the port never calls)
+   and the least time the card could take. Also the model with flash
+   attention against the model with dense attention on the same weights.
+3. Quantize kernels: the quantize and dequantize kernels, int8 and int4,
+   against their plain versions on the card AND against the host quantizer
+   that defines the wire (``collectives.quantize_blockwise`` /
+   ``dequantize_blockwise``), bit for bit: 0 differing payload bytes, scale
+   bits and dequantized bits, at the quantized path's bucket sizes (the
+   chunked embedding and lm_head buckets included) and on special values.
+   Timed at a 32 MiB bucket beside the plain versions and their bound.
+4. Path: the C++ lighthouse and two replica groups of
    ``python -m torchft_tpu_torch.train_hsdp --model small --attn flash
    --batch 8 --seq 1024 --steps 8`` on the card; group 1 is SIGKILLed after
    step 3 and restarted, heals from group 0, and both must end at step 8
    with bitwise-equal parameters, finite losses, and every flash kernel
    launched in both groups.
-4. The last line: ``{"ok": true, "device": {...}}``.
+5. Quantized path: the same drill with ``--quantize`` (int8); both
+   quantize kernels must launch in both groups too, and the final
+   parameters must differ from the unquantized drill's.
+6. The ``{"kernels": [...]}`` line, the card line, and the last line:
+   ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
 or of the JAX package.
@@ -64,19 +76,26 @@ def card_line() -> str:
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
-SOURCE = "flash_attention.cu"
+SOURCES = ("flash_attention.cu", "quantization.cu")
 
 
 def build_kernels() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from torchft_tpu_torch.ops import _cuda_build
 
-    t0 = time.monotonic()
-    _cuda_build.build(SOURCE)
-    seconds = time.monotonic() - t0
-    ptxas = _cuda_build.BUILD_DIR / f"{Path(SOURCE).stem}.ptxas.txt"
-    if ptxas.exists():
-        (OUT / ptxas.name).write_text(ptxas.read_text())
-    print(f"build: {SOURCE} {seconds:.1f}s", flush=True)
+    def build(source: str) -> float:
+        t0 = time.monotonic()
+        _cuda_build.build(source)
+        return time.monotonic() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        seconds = list(pool.map(build, SOURCES))
+    for source, secs in zip(SOURCES, seconds):
+        ptxas = _cuda_build.BUILD_DIR / f"{Path(source).stem}.ptxas.txt"
+        if ptxas.exists():
+            (OUT / ptxas.name).write_text(ptxas.read_text())
+        print(f"build: {source} {secs:.1f}s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -336,55 +355,296 @@ def kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the fault-tolerant training path
+# Phase 3: the quantize kernels against their plain versions and the wire
+# ---------------------------------------------------------------------------
+
+QMAX = {8: 127.0, 4: 7.0}
+# The quantized path's bucket sizes on llama_small: embed.weight and
+# lm_head.weight each fill a bucket alone (24,576,000 values: one 16M-value
+# transfer chunk and a 7,798,784-value tail), a layer bucket, and a whole
+# 32 MiB bucket plus a ragged tail.
+QUANT_SIZES = {
+    "embed/lm_head bucket, chunked": 24_576_000,
+    "layer bucket": 7_867_392,
+    "32 MiB + 333": 8_388_608 + 333,
+}
+TIMED_N = 8_388_608  # one 32 MiB fp32 bucket
+
+
+def seeded_values(n: int, seed: int):
+    """Normal values whose per-512-block magnitude spans 1e-8 to 1e3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    blocks = -(-n // 512)
+    mags = np.repeat(10.0 ** rng.uniform(-8, 3, size=blocks), 512)[:n]
+    return (rng.standard_normal(n, dtype=np.float32) * mags).astype(np.float32)
+
+
+def special_values(bits: int):
+    """One block per case: zeros, exact half-steps (scale 2^-3), +-0,
+    subnormals, an absmax whose scale underflows, the +-qmax edges, a block
+    holding a NaN and one holding +-inf."""
+    import numpy as np
+
+    qmax = QMAX[bits]
+    rng = np.random.default_rng(bits)
+    half = (np.arange(512) % (2 * qmax) - qmax + 0.5) * 0.125
+    half[0] = qmax * 0.125
+    signed_zero = np.zeros(512)
+    signed_zero[1::2] = -0.0
+    edges = rng.uniform(-1.0, 1.0, 512) * 3.0
+    edges[:4] = [3.0, -3.0, 3.0 * (1 - 2**-24), -3.0 * (1 - 2**-24)]
+    nan = rng.standard_normal(512)
+    nan[7] = np.nan
+    inf = rng.standard_normal(512)
+    inf[3], inf[9] = np.inf, -np.inf
+    return np.concatenate([
+        np.zeros(512), half, signed_zero, rng.standard_normal(512) * 1e-39,
+        np.full(512, 1e-45), edges, nan, inf,
+    ]).astype(np.float32)
+
+
+def mismatches(a, b) -> int:
+    """Elements whose bits differ; any NaN equals any NaN (a NaN's payload
+    bits are the platform's: the card writes the canonical NaN)."""
+    import numpy as np
+
+    a, b = np.asarray(a).reshape(-1), np.asarray(b).reshape(-1)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    if a.dtype.kind != "f":
+        return int(np.count_nonzero(a != b))
+    differ = a.view(np.uint32) != b.view(np.uint32)
+    return int(np.count_nonzero(differ & ~(np.isnan(a) & np.isnan(b))))
+
+
+def quantize_case(name: str, x_host, bits: int) -> float:
+    """The kernels on ``x_host`` through the transfer functions the path
+    calls, against their plain versions on the card and the host quantizer;
+    raises unless every count is 0. Returns the largest |kernel - plain|
+    over payload levels, finite scales and finite dequantized values."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch import collectives as C
+    from torchft_tpu_torch.ops import quantization as Q
+
+    dev = torch.device("cuda")
+    n = x_host.size
+    blocks = -(-n // 512)
+    x = torch.from_numpy(x_host).to(dev)
+    q_k, s_k, n_k = Q.quantize_for_transfer(x, bits)
+    padded = torch.zeros(blocks * 512, device=dev)
+    padded[:n] = x
+    q_p, s_p = Q.quantize_rows_reference(padded.view(blocks, 512), QMAX[bits])
+    q_p_levels = q_p.cpu().numpy().reshape(-1)
+    if bits == 4:
+        q_p = Q._pack_nibbles(q_p)
+    q_p, s_p = q_p.cpu().numpy().reshape(-1), s_p.cpu().numpy()
+    with warnings.catch_warnings():  # numpy warns on non-finite blocks
+        warnings.simplefilter("ignore", RuntimeWarning)
+        q_h, s_h = C.quantize_blockwise(x_host, bits)
+        d_h = C.dequantize_blockwise(q_h, s_h, n, bits)
+    d_k = Q.dequantize_from_transfer(q_h, s_h, n, bits, dev)
+    q_h_dev = torch.from_numpy(q_h).to(dev)
+    if bits == 4:
+        q_h_dev = Q._unpack_nibbles(q_h_dev.view(-1, 256))
+    d_p = Q.dequantize_rows_reference(
+        q_h_dev.view(-1, 512), torch.from_numpy(s_h).to(dev)
+    ).view(-1)[:n]
+    torch.cuda.synchronize()
+    d_k, d_p = d_k.cpu().numpy(), d_p.cpu().numpy()
+    counts = {
+        "payload vs plain": mismatches(q_k, q_p),
+        "scales vs plain": mismatches(s_k, s_p),
+        "payload vs numpy": mismatches(q_k, q_h),
+        "scales vs numpy": mismatches(s_k, s_h),
+        "dequantized vs plain": mismatches(d_k, d_p),
+        "dequantized vs numpy": mismatches(d_k, d_h),
+    }
+    if n_k != n:
+        raise AssertionError(f"{name}: pulled n {n_k} != {n}")
+    q_k_levels = q_k if bits == 8 else C.unpack_nibbles(q_k, blocks * 512)
+    finite = np.isfinite(s_p)
+    err = max(
+        float(np.abs(q_k_levels.astype(np.int32) - q_p_levels).max(initial=0)),
+        float(np.abs(s_k[finite] - s_p[finite]).max(initial=0.0)),
+        float(np.abs(d_k - d_p)[np.isfinite(d_p)].max(initial=0.0)),
+    )
+    print(f"quantize ok: {name} int{bits} n={n}: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"{name} int{bits} n={n}: mismatches {counts}")
+    return err
+
+
+def time_cold(fn, inputs, iters: int) -> tuple:
+    """(device ms, host ms) per call of fn(inputs[i % len(inputs)]): CUDA
+    events around the calls, and the host's clock around issuing them. The
+    fp32 inputs together exceed the 50 MB L2, so each call reads its input
+    from HBM, as the path does a bucket the backward wrote earlier. Where
+    the host ms reaches the device ms, the device waited for the host and
+    the device ms measures the issue rate, not the kernel."""
+    import torch
+
+    for a in inputs:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def quantize_timing() -> dict:
+    """Each kernel at one 32 MiB bucket (int8): launched straight through
+    its C entry point on preallocated buffers (``ms``; the issue costs the
+    host a few microseconds), and through its wrapper as the path calls it
+    (``wrapper_ms``: output allocation, checks and the launch; int4 adds
+    the torch nibble packing). Beside them the plain version and, for
+    dequantize, the one PyTorch call that computes the same function."""
+    import torch
+
+    from torchft_tpu_torch.ops import quantization as Q
+
+    dev = torch.device("cuda")
+    n = TIMED_N
+    blocks = n // 512
+    xs = [(torch.from_numpy(seeded_values(n, 20 + i)).to(dev),) for i in range(4)]
+    qs = [Q.fused_quantize(x, 8)[:2] for (x,) in xs]
+    q4s = [Q.fused_quantize(x, 4)[:2] for (x,) in xs]
+    lib = Q._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    q_out = torch.empty((blocks, 512), dtype=torch.int8, device=dev)
+    s_out = torch.empty(blocks, device=dev)
+    d_out = torch.empty(n, device=dev)
+    raw_q = [(x.data_ptr(), n, q_out.data_ptr(), s_out.data_ptr(), 127.0, stream)
+             for (x,) in xs]
+    raw_d = [(q.data_ptr(), s.data_ptr(), n, d_out.data_ptr(), stream)
+             for q, s in qs]
+    rcs = []
+    iters, plain_iters = 50, 10
+    quantize, dequantize = {}, {}
+    for rec, key, fn, args, it in (
+        (quantize, "ms", lambda *a: rcs.append(lib.tft_quantize_rows(*a)),
+         raw_q, iters),
+        (quantize, "wrapper_ms", lambda x: Q._quantize_rows(x, 127.0), xs, iters),
+        (quantize, "int4_wrapper_ms", lambda x: Q.fused_quantize(x, 4), xs, iters),
+        (quantize, "plain_ms",
+         lambda x: Q.quantize_rows_reference(x.view(blocks, 512), 127.0),
+         xs, plain_iters),
+        (dequantize, "ms", lambda *a: rcs.append(lib.tft_dequantize_rows(*a)),
+         raw_d, iters),
+        (dequantize, "wrapper_ms",
+         lambda q, s: Q.fused_dequantize(q, s, n, 8), qs, iters),
+        (dequantize, "int4_wrapper_ms",
+         lambda q, s: Q.fused_dequantize(q, s, n, 4), q4s, iters),
+        (dequantize, "plain_ms", Q.dequantize_rows_reference, qs, plain_iters),
+        (dequantize, "library_ms", lambda q, s: torch.mul(q, s[:, None]), qs, iters),
+    ):
+        rec[key], rec[key.replace("ms", "host_ms")] = time_cold(fn, args, it)
+    if any(rcs):
+        raise AssertionError(f"a timed launch failed: CUDA errors {set(rcs)}")
+    quantize["library_ms"] = None
+    quantize["library_call"] = "none: no single PyTorch call computes it"
+    dequantize["library_call"] = "torch.mul(q.view(-1, 512), scales[:, None])"
+    # Bytes each must move (inputs read once, outputs written once) over
+    # HBM, against its fp32 operations (quantize: |x|, max, divide, rint, two
+    # compares per value; dequantize: one multiply) over the fp32 rate.
+    moved = 4 * n + n + 4 * blocks
+    for rec, ops in ((quantize, 6 * n), (dequantize, n)):
+        t_bytes = moved / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    for name, rec in (("quantize", quantize), ("dequantize", dequantize)):
+        print(f"timing {name} n={n}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec.items() if isinstance(v, float)
+        ) + f" ({rec['bound_by']} bound)", flush=True)
+    return {"quantize": quantize, "dequantize": dequantize}
+
+
+def quantize_phase() -> dict:
+    err = 0.0
+    seed = 0
+    for bits in (8, 4):
+        for name, n in QUANT_SIZES.items():
+            seed += 1
+            err = max(err, quantize_case(name, seeded_values(n, seed), bits))
+        err = max(err, quantize_case("special values", special_values(bits), bits))
+    records = quantize_timing()
+    for rec in records.values():
+        rec["max_abs_err"] = err
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: the fault-tolerant training path
 # ---------------------------------------------------------------------------
 
 PATH_ARGS = [
     "--model", "small", "--attn", "flash", "--batch", "8", "--seq", "1024",
     "--steps", "8", "--device", "cuda",
 ]
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+QUANT_KERNELS = ("quantize", "dequantize")
 
 
-def path_phase() -> dict:
+def path_phase(name: str, args, kernels) -> dict:
+    """One kill/heal drill of two groups; raises unless both end at step 8
+    with equal parameters and finite losses, every kernel in ``kernels``
+    launched in both groups. Each group's process counts its own launches
+    from 0, so the counts are this drill's alone."""
     import shutil
 
     from torchft_tpu_torch.drill import kill_heal_drill
-    from torchft_tpu_torch.ops.flash_attention import LAUNCHES
+    from torchft_tpu_torch.ops import flash_attention, quantization
 
-    result_dir = OUT / "path"
+    result_dir = OUT / name
     shutil.rmtree(result_dir, ignore_errors=True)
-    for name in LAUNCHES:  # counts of this run only (the groups' own start at 0)
-        LAUNCHES[name] = 0
+    # The counts of this run only; the groups' processes start theirs at 0.
+    for counts in (flash_attention.LAUNCHES, quantization.LAUNCHES):
+        for kernel in counts:
+            counts[kernel] = 0
     t0 = time.monotonic()
     results = kill_heal_drill(
-        PATH_ARGS, str(result_dir), str(result_dir / "logs"),
-        kill_after_step=3, timeout_s=700.0,
+        args, str(result_dir), str(result_dir / "logs"),
+        kill_after_step=3, timeout_s=400.0,
     )
     wall = time.monotonic() - t0
     for g, r in results.items():
         if r["final_step"] != 8:
-            raise AssertionError(f"group {g} ended at step {r['final_step']}")
+            raise AssertionError(f"{name}: group {g} ended at step {r['final_step']}")
         if not all(math.isfinite(x) for x in r["losses"]) or not r["losses"]:
-            raise AssertionError(f"group {g} losses not finite: {r['losses']}")
-        for name, n in r["kernel_launches"].items():
-            if n <= 0:
-                raise AssertionError(f"group {g} never launched {name}")
+            raise AssertionError(f"{name}: group {g} losses not finite: {r['losses']}")
+        for kernel in kernels:
+            if r["kernel_launches"][kernel] <= 0:
+                raise AssertionError(f"{name}: group {g} never launched {kernel}")
     if results[0]["param_sha256"] != results[1]["param_sha256"]:
         raise AssertionError(
-            "groups disagree after kill + heal: "
+            f"{name}: groups disagree after kill + heal: "
             f"{results[0]['param_sha256']} vs {results[1]['param_sha256']}"
         )
     for g, r in results.items():
         med = r["median_step_ms"]
         print(
-            f"path group {g}: final_step {r['final_step']} losses "
+            f"{name} group {g}: final_step {r['final_step']} losses "
             f"{[round(x, 4) for x in r['losses']]} launches "
             f"{r['kernel_launches']} median step {med:.1f} ms "
             f"({r['tokens_per_step'] / (med / 1e3):.0f} tokens/s) phases "
             + json.dumps({k: round(v, 1) for k, v in r["median_phase_ms"].items()}),
             flush=True,
         )
-    print(f"path ok: param_sha256 equal {results[0]['param_sha256'][:16]}, "
+    print(f"{name} ok: param_sha256 equal {results[0]['param_sha256'][:16]}, "
           f"drill wall {wall:.1f}s", flush=True)
     return results
 
@@ -406,19 +666,37 @@ def main() -> int:
     build_kernels()
 
     records = kernel_phase()
-    path = path_phase()
+    records.update(quantize_phase())
+    path = path_phase("path", PATH_ARGS, FLASH_KERNELS)
+    quantized = path_phase(
+        "quantized path", [*PATH_ARGS, "--quantize"], FLASH_KERNELS + QUANT_KERNELS
+    )
+    if quantized[0]["param_sha256"] == path[0]["param_sha256"]:
+        raise AssertionError(
+            "the quantized drill ended in the unquantized drill's parameters: "
+            "the gradients were not quantized"
+        )
+    for g in (0, 1):
+        a, b = path[g], quantized[g]
+        print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
+              f"{json.dumps(a['median_phase_ms'])}, int8 {b['median_step_ms']:.1f} ms "
+              f"{json.dumps(b['median_phase_ms'])}", flush=True)
 
     kernels = []
     for name, rec in records.items():
-        launches = sum(r["kernel_launches"][name] for r in path.values())
+        drill = quantized if name in QUANT_KERNELS else path
+        launches = sum(r["kernel_launches"][name] for r in drill.values())
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "torchft_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": "torchft_tpu_torch/ops/csrc/"
+            + ("quantization.cu" if name in QUANT_KERNELS else "flash_attention.cu"),
             "replaces": {
                 "flash_fwd": "torchft_tpu/ops/flash_attention.py:202",
                 "flash_bwd_dq": "torchft_tpu/ops/flash_attention.py:245",
                 "flash_bwd_dkv": "torchft_tpu/ops/flash_attention.py:284",
+                "quantize": "torchft_tpu/ops/quantization.py:70",
+                "dequantize": "torchft_tpu/ops/quantization.py:138",
             }[name],
             "launches": launches,
             **rec,

@@ -37,10 +37,41 @@ def test_two_groups_kill_heal_bitwise_equal(tmp_path):
     assert results[0]["param_sha256"] == results[1]["param_sha256"], results
 
 
+# Two drills; covers a first-use build of the C++ binaries (~1 min).
+@pytest.mark.timeout(300)
+def test_two_groups_kill_heal_quantized_device_path(tmp_path):
+    """``--quantize`` through the device-quantized allreduce (CPU tensors
+    forced down it, so the kernels' plain versions): the same kill and
+    heal ends in bitwise-identical parameters, and in the very bits the
+    host quantizer's path reaches (the two write the same wire)."""
+    steps = 8
+    sha = {}
+    for path, env in (("device", {"TORCHFT_FORCE_DEVICE_QUANT": "1"}),
+                      ("host", {})):
+        results = kill_heal_drill(
+            ["--model", "debug", "--steps", str(steps), "--device", "cpu",
+             "--quantize"],
+            str(tmp_path / path / "results"),
+            str(tmp_path / path / "logs"),
+            kill_after_step=3,
+            timeout_s=200.0,
+            env={"OMP_NUM_THREADS": "1", **env},
+        )
+        healed = (tmp_path / path / "logs" / "group1.log").read_text()
+        assert "healing from replica_rank=0" in healed.split("SIGKILLed")[1]
+        for r in results.values():
+            assert r["final_step"] == steps
+            assert (r["quantize"], r["bits"]) == (True, 8)
+            assert r["losses"] and all(math.isfinite(x) for x in r["losses"])
+        assert results[0]["param_sha256"] == results[1]["param_sha256"], path
+        sha[path] = results[0]["param_sha256"]
+    assert sha["device"] == sha["host"], sha
+
+
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--quantize"], "quantize"),
+        (["--model", "pipeline"], "pipeline"),
         (["--ckpt-transport", "pg-sharded"], "pg_transport"),
         (["--durable-dir", "x"], "durable"),
         (["--model", "moe"], "MoE"),

@@ -7,17 +7,20 @@ the same alltoall -> local-reduce-in-full-precision -> allgather pipeline
 (sums are computed in float32, so quantization error does not accumulate
 across ranks; only one quantize->dequantize round trip per value).
 
-The reference quantizes with Triton fp8 kernels on CUDA; here the host path
-is vectorized numpy int8 (replica-axis transfers are host-driven), with the
-same wire format as the JAX package's bit for bit. Quantizing on the device
-before the device->host pull waits for the quantize-kernel slice of the port
-(ROADMAP.md, kernel queue: quantize/dequantize).
+The reference quantizes with Triton fp8 kernels on CUDA. Here the wire
+format is defined by the vectorized numpy int8 quantizer of the host path
+(``quantize_blockwise``), the JAX package's bit for bit; the device path
+(``allreduce_quantized_torch``) quantizes CUDA tensors with the CUDA kernels
+of ``ops/quantization.py`` before the device->host pull and writes the same
+bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
+import weakref
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +51,55 @@ def _spawn_collective(fn) -> "concurrent.futures.Future":
 
     threading.Thread(target=run, daemon=True, name="quant-collective").start()
     return fut
+
+
+class _WireOrder:
+    """Runs the wire phases of one process group's quantized collectives
+    one at a time, in the order the caller issued them.
+
+    Each collective runs on a thread of its own, and the process group
+    pairs the ops of the ranks by a sequence number it hands out when an op
+    is called. Called from racing threads, two buckets in flight together
+    could take their numbers in one order on one replica and in the other
+    order on its peer, and each would then reduce the other's payload. A
+    ticket taken on the caller's thread at issue fixes the order."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._issued = 0
+        self._serving = 0
+        self._finished: set = set()
+
+    def ticket(self) -> int:
+        with self._cv:
+            self._issued += 1
+            return self._issued - 1
+
+    def wait_turn(self, ticket: int) -> None:
+        with self._cv:
+            self._cv.wait_for(lambda: self._serving == ticket)
+
+    def finish(self, ticket: int) -> None:
+        """Ends ``ticket``'s turn, or gives it up if it never came (a
+        collective that failed before its wire phase)."""
+        with self._cv:
+            self._finished.add(ticket)
+            while self._serving in self._finished:
+                self._finished.discard(self._serving)
+                self._serving += 1
+            self._cv.notify_all()
+
+
+_wire_orders: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_wire_orders_lock = threading.Lock()
+
+
+def _wire_order(pg: ProcessGroup) -> _WireOrder:
+    with _wire_orders_lock:
+        order = _wire_orders.get(pg)
+        if order is None:
+            order = _wire_orders[pg] = _WireOrder()
+        return order
 
 
 # Host-side (de)quantize runs chunk-parallel on threads: numpy ufuncs
@@ -194,6 +246,129 @@ def _unflatten_into(
         offset += n
 
 
+def takes_device_path(tensors: Sequence) -> bool:
+    """Whether a quantized allreduce of ``tensors`` takes the device path
+    (:func:`allreduce_quantized_torch`): any of them a CUDA tensor, or every
+    one a torch tensor with ``TORCHFT_FORCE_DEVICE_QUANT`` set (CPU tensors
+    then go the same way through the kernels' plain versions; the CPU tests
+    reach the path so). A CUDA tensor never takes the host quantizer."""
+    import torch
+
+    tensors = list(tensors)
+    if not tensors:
+        return False
+    if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
+        return True
+    return knobs.get_bool("TORCHFT_FORCE_DEVICE_QUANT") and all(
+        isinstance(t, torch.Tensor) for t in tensors
+    )
+
+
+def allreduce_quantized_torch(
+    pg: ProcessGroup,
+    tensors: Sequence["torch.Tensor"],  # noqa: F821 - imported lazily
+    op: ReduceOp = ReduceOp.SUM,
+    scale: float = 1.0,
+    bits: int = 8,
+) -> Work:
+    """Quantized allreduce of torch tensors on one device: quantize ON THE
+    DEVICE with the CUDA kernels, pull int8 (or int4) payloads + per-block
+    scales to the host (~4x, or ~8x, fewer bytes than fp32 across PCIe and
+    then the wire), run the alltoall -> fp32 local reduce -> allgather wire
+    pipeline on them, and dequantize ON THE DEVICE (the twin of the JAX
+    package's ``allreduce_quantized_jax``; reference: collectives.py:297-415).
+    CPU tensors take the same path through the kernels' plain versions.
+
+    Returns Work whose result is a list of NEW tensors with the inputs'
+    shapes, dtypes and device, scaled by ``scale`` (and divided by the world
+    size for AVG). The inputs are not written.
+    """
+    import torch
+
+    from torchft_tpu_torch.ops import quantization as Q
+    from torchft_tpu_torch.telemetry import trace_span
+
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError(f"allreduce_quantized supports SUM/AVG, got {op}")
+    tensors = list(tensors)
+    if not all(isinstance(t, torch.Tensor) for t in tensors) or (
+        len({t.device for t in tensors}) != 1
+    ):
+        raise ValueError(
+            "allreduce_quantized_torch: want torch tensors on one device, got "
+            f"{[getattr(t, 'device', type(t).__name__) for t in tensors]}"
+        )
+    device = tensors[0].device
+    shapes = [t.shape for t in tensors]
+    dtypes = [t.dtype for t in tensors]
+    sizes = [t.numel() for t in tensors]
+
+    def rebuild(flat: "torch.Tensor") -> List["torch.Tensor"]:
+        outs = []
+        offset = 0
+        for shape, dtype, size in zip(shapes, dtypes, sizes):
+            outs.append(flat[offset : offset + size].view(shape).to(dtype))
+            offset += size
+        return outs
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ws = pg.size()
+    if ws <= 1:
+        return DummyWork(rebuild(flat * scale) if scale != 1.0 else tensors)
+    total_scale = scale / ws if op == ReduceOp.AVG else scale
+
+    # Launch the quantize kernels NOW, on the caller's thread and stream,
+    # right behind the work that produced the tensors; the collective thread
+    # pulls their output once the event recorded after them has fired. The
+    # kernels read ``flat``, a buffer of this call's own (torch.cat copies
+    # even a single tensor), never the caller's tensors.
+    chunks, n, ready = Q.quantize_for_transfer_async(flat, bits)
+    del flat
+    # The dequantize runs on the caller's stream too, so the caller's later
+    # use of the result is ordered after it without a wait here.
+    caller_stream = (
+        torch.cuda.current_stream(device) if device.type == "cuda" else None
+    )
+
+    order = _wire_order(pg)
+    ticket = order.ticket()
+
+    def run() -> List["torch.Tensor"]:
+        try:
+            with trace_span("torchft::collectives::quantize_pull"):
+                q_host, s_host, n_host = Q.pull_transfer_chunks(
+                    chunks, n, ready
+                )
+            order.wait_turn(ticket)
+            with trace_span("torchft::collectives::wire"):
+                reduced = _quantized_wire_pipeline(
+                    pg, q_host, s_host, n_host, bits
+                )
+        finally:
+            order.finish(ticket)
+        with trace_span("torchft::collectives::dequant_push"):
+            on_caller_stream = (
+                torch.cuda.stream(caller_stream)
+                if caller_stream is not None
+                else contextlib.nullcontext()
+            )
+            with on_caller_stream:
+                if isinstance(reduced, np.ndarray):
+                    # Tiny payload: the local reduce already holds the fp32
+                    # sum; push it as it is, no second lossy round trip.
+                    out = Q.host_to_device(reduced, device)
+                else:
+                    q_final, s_final = reduced
+                    out = Q.dequantize_from_transfer(
+                        q_final, s_final, n_host, bits, device
+                    )
+                if total_scale != 1.0:
+                    out = out * total_scale
+                return rebuild(out)
+
+    return FutureWork(_spawn_collective(run))
+
+
 def reduce_scatter_quantized(
     pg: ProcessGroup,
     arrays: Sequence[np.ndarray],
@@ -212,28 +387,34 @@ def reduce_scatter_quantized(
         raise ValueError(f"reduce_scatter_quantized supports SUM/AVG, got {op}")
     ws = pg.size()
     arrays = list(arrays)
+    order = _wire_order(pg)
+    ticket = order.ticket()
 
     def run():
-        flat, _sizes = _flatten(arrays)
-        n = flat.size
-        if ws <= 1:
-            return flat, (0, n)
-        q_host, s_host = quantize_blockwise(flat, bits)
-        blocks = s_host.size
-        me = pg.rank()
-        counts = [len(c) for c in np.array_split(np.arange(blocks), ws)]
-        starts = np.concatenate([[0], np.cumsum(counts)]) * BLOCK
-        start, end = int(starts[me]), int(min(starts[me + 1], n))
-        if blocks < ws:
-            # Tiny payload: gather-all, reduce locally, slice my range.
-            gathered = pg.allgather([q_host, s_host]).wait()
-            acc = np.zeros(n, np.float32)
-            for g_q, g_s in gathered:
-                acc += dequantize_blockwise(g_q, g_s, n, bits)
-            shard = acc[start:end]
-        else:
-            acc = _alltoall_chunk_reduce(pg, q_host, s_host, counts, bits)
-            shard = acc[: end - start]
+        try:
+            flat, _sizes = _flatten(arrays)
+            n = flat.size
+            if ws <= 1:
+                return flat, (0, n)
+            q_host, s_host = quantize_blockwise(flat, bits)
+            blocks = s_host.size
+            me = pg.rank()
+            counts = [len(c) for c in np.array_split(np.arange(blocks), ws)]
+            starts = np.concatenate([[0], np.cumsum(counts)]) * BLOCK
+            start, end = int(starts[me]), int(min(starts[me + 1], n))
+            order.wait_turn(ticket)
+            if blocks < ws:
+                # Tiny payload: gather-all, reduce locally, slice my range.
+                gathered = pg.allgather([q_host, s_host]).wait()
+                acc = np.zeros(n, np.float32)
+                for g_q, g_s in gathered:
+                    acc += dequantize_blockwise(g_q, g_s, n, bits)
+                shard = acc[start:end]
+            else:
+                acc = _alltoall_chunk_reduce(pg, q_host, s_host, counts, bits)
+                shard = acc[: end - start]
+        finally:
+            order.finish(ticket)
         if op == ReduceOp.AVG:
             shard = shard / ws
         return shard, (start, end)
@@ -411,20 +592,29 @@ def allreduce_quantized(
 
     from torchft_tpu_torch.telemetry import trace_span
 
+    order = _wire_order(pg)
+    ticket = order.ticket()
+
     def run() -> List[np.ndarray]:
-        # Same span names as the JAX package's device path so telemetry
-        # consumers see one uniform phase decomposition: "quantize_pull"
-        # is the host quantize here (there is no device pull), "wire" the
+        # Same span names as the device path so telemetry consumers see one
+        # uniform phase decomposition: "quantize_pull" is the host quantize
+        # here (there is no device pull), "wire" the
         # alltoall-reduce-allgather pipeline, "dequant_push" the decode +
         # write-back.
-        with trace_span("torchft::collectives::quantize_pull"):
-            flat, sizes = _flatten(arrays)
-            n = flat.size
-            q_host, s_host = quantize_blockwise(flat, bits)
-            if on_local_quantized is not None:
-                on_local_quantized(flat, q_host, s_host)
-        with trace_span("torchft::collectives::wire"):
-            reduced = _quantized_wire_pipeline(pg, q_host, s_host, n, bits)
+        try:
+            with trace_span("torchft::collectives::quantize_pull"):
+                flat, sizes = _flatten(arrays)
+                n = flat.size
+                q_host, s_host = quantize_blockwise(flat, bits)
+                if on_local_quantized is not None:
+                    on_local_quantized(flat, q_host, s_host)
+            order.wait_turn(ticket)
+            with trace_span("torchft::collectives::wire"):
+                reduced = _quantized_wire_pipeline(
+                    pg, q_host, s_host, n, bits
+                )
+        finally:
+            order.finish(ticket)
         with trace_span("torchft::collectives::dequant_push"):
             if isinstance(reduced, np.ndarray):
                 result = reduced

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from torchft_tpu_torch.collectives import takes_device_path
 from torchft_tpu_torch.manager import Manager
 
 Grads = Dict[str, torch.Tensor]
@@ -56,11 +57,22 @@ class DistributedDataParallel:
         and rebuilds the dict (values averaged over live participants, on
         the gradients' own device).
 
-        ``should_quantize=True`` on CUDA gradients raises
-        ``NotImplementedError``: the device quantize kernels are not ported
-        yet (ROADMAP.md kernel queue). On CPU gradients it takes the host
-        quantizer, with ``error_feedback`` (ctor) compensating each bucket
-        with the residual the previous step's quantizer dropped."""
+        With ``should_quantize=True``:
+
+        - CUDA gradients (or CPU ones with ``TORCHFT_FORCE_DEVICE_QUANT``)
+          ride the manager's DEVICE quantize path: the CUDA kernels shrink
+          each bucket to int8/int4 before the device->host pull, and the
+          sum is dequantized on the device. Each bucket's leaves go down as
+          a list in the host path's ``bucketize`` layout, so a device-path
+          replica stays collective-for-collective symmetric with a
+          host-path peer, and the device path concatenates them into the
+          same flat payload.
+        - With ``error_feedback=True`` (ctor) every bucket takes the host
+          quantizer, CUDA gradients included, as in the JAX package: the
+          residual hook needs the host-side (flat, q, s) of one
+          quantization, which the chunked device path never has. Each
+          bucket is compensated with the residual the previous step's
+          quantizer dropped."""
         if quantize_bits is None:
             quantize_bits = self._quantize_bits
         elif (
@@ -74,16 +86,29 @@ class DistributedDataParallel:
                 "construction; pass the width once, in the ctor"
             )
         names = list(grads)
-        leaves = [grads[n] for n in names]
-        if should_quantize and any(t.is_cuda for t in leaves):
-            raise NotImplementedError(
-                "quantized gradient allreduce of CUDA tensors needs the "
-                "device quantize/dequantize kernels, which are not ported yet "
-                "(ROADMAP.md, kernel queue: quantize + dequantize)"
-            )
+        leaves = [grads[n].detach() for n in names]
         buckets = self._bucketize(leaves)
+        if should_quantize and not self._error_feedback and takes_device_path(
+            leaves
+        ):
+            works = [
+                (
+                    self._manager.allreduce(
+                        [leaves[i] for i in idx_list],
+                        should_quantize=True,
+                        quantize_bits=quantize_bits,
+                    ),
+                    idx_list,
+                )
+                for idx_list in buckets
+            ]
+            out: Grads = {}
+            for work, idx_list in works:
+                for i, reduced in zip(idx_list, work.wait()):
+                    out[names[i]] = reduced
+            return {n: out[n] for n in names}
         flats = [
-            torch.cat([leaves[i].detach().reshape(-1) for i in idx_list])
+            torch.cat([leaves[i].reshape(-1) for i in idx_list])
             for idx_list in buckets
         ]
         if any(f.is_cuda for f in flats):
@@ -111,8 +136,9 @@ class DistributedDataParallel:
         for b_idx, (flat, idx_list) in enumerate(zip(flats, buckets)):
             on_quantized = None
             if should_quantize and self._error_feedback:
-                flat = torch.from_numpy(
-                    self._residuals.compensate(b_idx, flat.numpy())
+                # A host array: the manager quantizes it on the host.
+                flat = self._residuals.compensate(
+                    b_idx, flat.float().cpu().numpy()
                 )
                 on_quantized = self._residuals.make_hook(b_idx)
             work = self._manager.allreduce(
@@ -123,9 +149,12 @@ class DistributedDataParallel:
             )
             works.append((work, idx_list))
 
-        out: Grads = {}
+        out = {}
         for work, idx_list in works:
             (reduced,) = work.wait()
+            like = leaves[idx_list[0]]
+            if not isinstance(reduced, torch.Tensor):  # error feedback
+                reduced = torch.from_numpy(reduced).to(like.device, like.dtype)
             offset = 0
             for i in idx_list:
                 n = leaves[i].numel()

@@ -381,7 +381,7 @@ _ALL = [
         "TORCHFT_FORCE_DEVICE_QUANT",
         "bool",
         None,
-        "Truthy: force the on-device (Pallas) quantization path even off-TPU (interpreter; test use only).",
+        "Truthy: send CPU torch tensors down the device-quantized allreduce path (the kernels' plain versions; test use only). CUDA tensors always take it.",
     ),
     _k(
         "TORCHFT_LOSS_CHUNK",

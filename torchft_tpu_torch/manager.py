@@ -894,23 +894,28 @@ class Manager:
 
         Torch tensors are copied to host numpy at this edge (bf16 through
         fp32), reduced, and ``wait()`` returns tensors on each input's own
-        device and dtype. ``should_quantize=True`` takes the host quantizer
-        for numpy inputs only: on CUDA tensors it raises
-        ``NotImplementedError`` (the device quantize kernels are the next
-        slice of the port, ROADMAP.md kernel queue) rather than quietly
-        pulling fp32 to the host quantizer. ``quantize_bits=4``
+        device and dtype.
+
+        With ``should_quantize=True`` and CUDA tensors, quantization runs ON
+        THE DEVICE (the CUDA kernels of ``ops/quantization.py``) before the
+        device->host pull, so both the pull and the wire move int8 (or int4)
+        + per-block scales instead of fp32; the result is dequantized on
+        the device and ``wait()`` returns NEW tensors. Numpy inputs, and CPU
+        tensors unless ``TORCHFT_FORCE_DEVICE_QUANT`` is set, take the host
+        quantizer; both write the same wire bytes. ``quantize_bits=4``
         nibble-packs the payload; all replicas must use the same width."""
         if reduce_op not in (ReduceOp.SUM, ReduceOp.AVG):
             raise ValueError(
                 f"manager.allreduce supports SUM/AVG, got {reduce_op}"
             )
         items = list(tensors) if isinstance(tensors, (list, tuple)) else [tensors]
-        if should_quantize and any(_is_cuda(t) for t in items):
-            raise NotImplementedError(
-                "quantized allreduce of CUDA tensors needs the device "
-                "quantize/dequantize kernels, which are not ported yet "
-                "(ROADMAP.md, kernel queue: quantize + dequantize)"
-            )
+        if should_quantize:
+            from torchft_tpu_torch.collectives import takes_device_path
+
+            if takes_device_path(items):
+                return self._allreduce_device_quantized(
+                    items, quantize_bits, on_local_quantized, reduce_op
+                )
         templates = [t if _is_tensor(t) else None for t in items]
 
         def to_mutable(t: Any) -> np.ndarray:
@@ -982,6 +987,55 @@ class Manager:
             ),
             templates,
         )
+
+    def _allreduce_device_quantized(
+        self,
+        items: List[Any],
+        quantize_bits: int,
+        on_local_quantized: Any,
+        reduce_op: ReduceOp,
+    ) -> Work:
+        """The device-quantized branch of :meth:`allreduce` (the twin of the
+        JAX package's jax-array branch). Raises ValueError for a host-path
+        hook; every other failure returns the inputs in a completed Work,
+        the error latched."""
+        if on_local_quantized is not None:
+            raise ValueError(
+                "on_local_quantized is a host-path hook (numpy inputs): "
+                "the device path quantizes in chunks on the device and has "
+                "no single host-side (flat, q, s) moment to expose"
+            )
+        # The quorum first, then errored(): see the host branch above. (The
+        # JAX package's device branch checks errored() first.)
+        try:
+            self.wait_quorum()
+        except Exception:
+            return DummyWork(items)
+        if self.errored() is not None:
+            return DummyWork(items)
+        if self._participating_rank is None:
+            import torch
+
+            items = [torch.zeros_like(t) for t in items]
+        num_participants = max(self.num_participants(), 1)
+        scale = 1.0 / num_participants if reduce_op == ReduceOp.AVG else 1.0
+        try:
+            from torchft_tpu_torch.collectives import allreduce_quantized_torch
+
+            work = allreduce_quantized_torch(
+                self._pg, items, scale=scale, bits=quantize_bits
+            )
+        except Exception as e:
+            self._logger.exception(f"quantized allreduce failed: {e}")
+            self.report_error(e)
+            return DummyWork(items)
+        self._journal(
+            "allreduce_issue",
+            nbytes=int(sum(t.numel() * t.element_size() for t in items)),
+            quantized=True,
+            bits=quantize_bits,
+        )
+        return _ManagedWork(self, work, items, scale=1.0, in_place=False)
 
     # ------------------------------------------------------------------
     # Errors / commit protocol
@@ -1588,10 +1642,6 @@ class _EvidenceWatcher:
 def _is_tensor(t: Any) -> bool:
     # torch.Tensor without importing torch for numpy-only callers.
     return type(t).__module__.startswith("torch") and hasattr(t, "detach")
-
-
-def _is_cuda(t: Any) -> bool:
-    return _is_tensor(t) and bool(getattr(t, "is_cuda", False))
 
 
 def _tensor_to_host(t: Any) -> np.ndarray:

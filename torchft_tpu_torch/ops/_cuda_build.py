@@ -5,8 +5,8 @@ interface, loaded with ``ctypes``. The library is built from the checkout's
 own sources into ``torchft_tpu_torch/_build/`` (ignored by git), named by a
 hash of the source and the flags, so a changed source is rebuilt and an
 unchanged one is built once per checkout. Concurrent processes (two replica
-groups starting together) serialize on a file lock; the loser finds the
-library already built.
+groups starting together) serialize on a file lock per source; the loser
+finds the library already built. Different sources build in parallel.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ def build(source: str) -> Path:
         build_seconds.setdefault(source, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock_file:
+    with open(BUILD_DIR / f".{Path(source).stem}.lock", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         try:
             if out.exists():

@@ -19,6 +19,12 @@ Run two replica groups against one lighthouse (both may share one card)::
           --batch 8 --seq 1024 --min-replicas 2 --steps 8 --result-dir out &
     done
 
+``--quantize`` (``--quantize-bits 4`` for int4) quantizes the replica-axis
+gradient allreduce: on CUDA gradients with the CUDA kernels of
+``ops/quantization.py`` before the device->host pull, on CPU gradients with
+the host quantizer (the same wire bytes). Every group must pass the same
+flags.
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -37,8 +43,6 @@ import time
 # Flags the JAX trainer has whose paths are not ported yet, with the
 # ROADMAP.md item that ports them.
 _UNPORTED = {
-    "quantize": "kernel queue: quantize + dequantize (device-side "
-    "quantized outer allreduce)",
     "pg-sharded": "queue 1: checkpointing/pg_transport + sharded",
     "durable_dir": "queue 1: checkpointing/durable",
     "moe": "queue 1: MoE / expert parallelism",
@@ -102,7 +106,6 @@ def _parse(argv=None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     unported = [
         key for key, on in (
-            ("quantize", args.quantize),
             ("pg-sharded", args.ckpt_transport == "pg-sharded"),
             ("durable_dir", args.durable_dir is not None),
             ("moe", args.model == "moe"),
@@ -142,7 +145,7 @@ def main(argv=None) -> int:
     from torchft_tpu_torch.ddp import DistributedDataParallel
     from torchft_tpu_torch.manager import Manager
     from torchft_tpu_torch.models import Transformer, llama_debug, llama_small
-    from torchft_tpu_torch.ops.flash_attention import LAUNCHES
+    from torchft_tpu_torch.ops import flash_attention, quantization
     from torchft_tpu_torch.optim import (
         load_optimizer_state_dict,
         optimizer_state_dict,
@@ -189,8 +192,9 @@ def main(argv=None) -> int:
     losses = []
     step_ms = []
     # Per committed step, ms: grad step (forward + backward, synchronized),
-    # replica-axis allreduce (device->host, wire, host->device), commit
-    # gate + optimizer apply.
+    # replica-axis allreduce (device->host, wire, host->device; with
+    # --quantize also the quantize and dequantize kernels), commit gate +
+    # optimizer apply.
     phase_ms = {"grad": [], "allreduce": [], "commit_apply": []}
     drained = False
     try:
@@ -221,7 +225,11 @@ def main(argv=None) -> int:
             loss, grads = grad_step(model, batch)
             sync()
             t_grad = time.perf_counter()
-            grads = ddp.allreduce_grads(grads)
+            grads = ddp.allreduce_grads(
+                grads,
+                should_quantize=args.quantize,
+                quantize_bits=args.quantize_bits,
+            )
             t_ar = time.perf_counter()
             # Fenced: the commit decision + param/opt update must be one
             # critical section vs concurrent checkpoint sends (async
@@ -272,7 +280,11 @@ def main(argv=None) -> int:
                     torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"
                 ),
-                "kernel_launches": dict(LAUNCHES),
+                "kernel_launches": {
+                    **flash_attention.LAUNCHES, **quantization.LAUNCHES
+                },
+                "quantize": args.quantize,
+                "bits": args.quantize_bits if args.quantize else None,
                 "committed_steps": len(step_ms),
                 "step_ms": step_ms,
                 "median_step_ms": statistics.median(steady) if steady else None,

@@ -15,23 +15,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``F.scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take. Also the model with flash
    attention against the model with dense attention on the same weights.
-3. Quantize kernels: the quantize and dequantize kernels, int8 and int4,
+3. Block flash kernels (ring attention's fold): each against its plain
+   version element by element (``TOL``; out only on rows that see a key) at
+   the ring path's shapes (B=8, Sq=Skv=1024, llama_small's heads, bf16) and
+   offsets (0,0), (1024,0), (1024,512), (0,1024) (all masked: out 0, lse
+   <= -1e29, zero gradients), one fp32 case and one ragged case; timed at
+   (0,0) and (1024,0). Then ``make_ring_attention`` at sp=4 on a mesh that
+   repeats the card (B=2, S=4096): out, dq, dk, dv against the plain
+   full-sequence versions within the ring limit derived beside
+   ``RING_SLACK``, 16 launches of each block kernel.
+4. Quantize kernels: the quantize and dequantize kernels, int8 and int4,
    against their plain versions on the card AND against the host quantizer
    that defines the wire (``collectives.quantize_blockwise`` /
    ``dequantize_blockwise``), bit for bit: 0 differing payload bytes, scale
    bits and dequantized bits, at the quantized path's bucket sizes (the
    chunked embedding and lm_head buckets included) and on special values.
    Timed at a 32 MiB bucket beside the plain versions and their bound.
-4. Path: the C++ lighthouse and two replica groups of
+5. Path: the C++ lighthouse and two replica groups of
    ``python -m torchft_tpu_torch.train_hsdp --model small --attn flash
    --batch 8 --seq 1024 --steps 8`` on the card; group 1 is SIGKILLed after
    step 3 and restarted, heals from group 0, and both must end at step 8
    with bitwise-equal parameters, finite losses, and every flash kernel
    launched in both groups.
-5. Quantized path: the same drill with ``--quantize`` (int8); both
+6. Quantized path: the same drill with ``--quantize`` (int8); both
    quantize kernels must launch in both groups too, and the final
    parameters must differ from the unquantized drill's.
-6. The ``{"kernels": [...]}`` line, the card line, and the last line:
+7. Ring path: the same drill with ``--attn ring`` (sp=1 on one card: one
+   block per layer); the three block kernels must launch in both groups,
+   the whole-sequence flash kernels never.
+8. The ``{"kernels": [...]}`` line, the card line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
@@ -123,25 +135,33 @@ def causal_pairs(S: int, causal: bool) -> int:
     return S * (S + 1) // 2 if causal else S * S
 
 
-def bounds(B, S, Hq, Hkv, D, dtype_name, causal):
+def bounds(B, S, Hq, Hkv, D, dtype_name, causal, Skv=None, pairs=None,
+           names=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), rows_in=2):
     """Least time (ms) and its binding resource per kernel: the larger of
     the operations this call needs over the peak rate for its dtype and
     the bytes it must move (each input read once, each output written
     once) over the HBM rate. Matrix-product flops per (q row, kv column)
-    pair the causal mask keeps: forward QK^T + PV = 4D; dq: QK^T, dO.V^T,
-    dS.K = 6D; dk/dv: QK^T, dO.V^T, P^T.dO, dS^T.Q = 8D."""
+    pair the mask keeps: forward QK^T + PV = 4D; dq: QK^T, dO.V^T,
+    dS.K = 6D; dk/dv: QK^T, dO.V^T, P^T.dO, dS^T.Q = 8D. ``pairs``: the
+    visible pairs per (batch, head) where the mask is not causal at zero
+    offsets; ``rows_in``: the fp32 rows the backward reads (lse and delta;
+    3 with dlse); ``names``: the forward, dq and dk/dv kernels' names."""
     e = 2 if dtype_name == "bfloat16" else 4
-    pairs = B * Hq * causal_pairs(S, causal)
+    Skv = S if Skv is None else Skv
+    pairs = B * Hq * (causal_pairs(S, causal) if pairs is None else pairs)
     q_bytes = B * S * Hq * D * e
-    kv_bytes = B * S * Hkv * D * e
+    kv_bytes = B * Skv * Hkv * D * e
     row_bytes = B * Hq * S * 4
+    fwd, dq, dkv = names
     work = {
-        "flash_fwd": (4 * D * pairs, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
-        "flash_bwd_dq": (
-            6 * D * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes
+        fwd: (4 * D * pairs, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
+        dq: (
+            6 * D * pairs,
+            2 * q_bytes + 2 * kv_bytes + rows_in * row_bytes + q_bytes,
         ),
-        "flash_bwd_dkv": (
-            8 * D * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + 2 * kv_bytes
+        dkv: (
+            8 * D * pairs,
+            2 * q_bytes + 2 * kv_bytes + rows_in * row_bytes + 2 * kv_bytes,
         ),
     }
     out = {}
@@ -179,10 +199,12 @@ def compare(a, b, terms, tol: float) -> dict:
     diff = (a - b).abs()
     rms = float(b.square().mean().sqrt())
     allowed = tol * (b.abs() + terms) + RMS_FLOOR * rms
+    # An exact match is share 0, also where everything is 0 (all masked).
+    share = torch.where(diff == 0, 0.0, diff / allowed)
     return {
         "max_abs_err": float(diff.max()),
         "ref_rms": rms,
-        "share": float((diff / allowed).max()),
+        "share": float(share.max()),
     }
 
 
@@ -355,7 +377,263 @@ def kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the quantize kernels against their plain versions and the wire
+# Phase 3: the block kernels and the ring
+# ---------------------------------------------------------------------------
+
+BLOCK_KERNELS = ("flash_block_fwd", "flash_block_bwd_dq", "flash_block_bwd_dkv")
+BLOCK_OFFSETS = ((0, 0), (1024, 0), (1024, 512), (0, 1024))
+
+
+def check_block_case(B, Sq, Skv, Hq, Hkv, D, dtype, q_off, k_off, timed: bool,
+                     seed: int, device: str = "cuda"):
+    """The three block kernels against their plain versions on one input
+    set, with a random lse cotangent; returns {kernel: record}. Every
+    element of dq, dk, dv and lse is held to ``TOL``; out on the rows that
+    see at least one key (a row that sees none is out 0 and lse <= -1e29;
+    where no row sees a key, every gradient is 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        *shape, generator=g, device=dev, dtype=torch.float32
+    ).to(dtype)
+    q, k, v = mk(B, Sq, Hq, D), mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, D)
+    dout = mk(B, Sq, Hq, D)
+    dlse = torch.randn(B, Hq, Sq, generator=g, device=dev)
+    offs = (q_off, k_off)
+
+    out, lse = fa.flash_block_fwd(q, k, v, *offs)
+    delta = fa._delta(dout, out)
+    args = (q, k, v, dout, lse, delta, dlse, *offs)
+    dq = fa.flash_block_bwd_dq(*args)
+    dk, dv = fa.flash_block_bwd_dkv(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out_r, lse_r = fa.flash_block_fwd_reference(q, k, v, *offs)
+    dq_r = fa.flash_block_bwd_dq_reference(*args)
+    dk_r, dv_r = fa.flash_block_bwd_dkv_reference(*args)
+    terms = fa.flash_attention_term_sums(
+        q, k, v, dout, lse, delta, True, q_off, k_off, dlse
+    )
+    # Rows that see at least one key see key 0.
+    seen = torch.arange(Sq, device=dev) + q_off >= k_off
+    case = (f"B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} D={D} "
+            f"{str(dtype)[6:]} offsets {offs}")
+    blind = ~seen
+    if blind.any():
+        if out[:, blind].abs().max() != 0 or not (
+            torch.isfinite(lse[..., blind]).all()
+            and (lse[..., blind] <= -1e29).all()
+        ):
+            raise AssertionError(f"rows that see no key are not out 0, lse <= -1e29 at {case}")
+    if not seen.any() and any(x.abs().max() != 0 for x in (dq, dk, dv)):
+        raise AssertionError(f"gradients not 0 where every key is masked at {case}")
+    tol, tol32 = TOL[str(dtype)[6:]], TOL["float32"]
+    outputs = {
+        "flash_block_fwd": {
+            "out": (out[:, seen], out_r[:, seen], terms["out"][:, seen], tol),
+            "lse": (lse, lse_r, 1.0, tol32),
+        },
+        "flash_block_bwd_dq": {"dq": (dq, dq_r, terms["dq"], tol)},
+        "flash_block_bwd_dkv": {
+            "dk": (dk, dk_r, terms["dk"], tol),
+            "dv": (dv, dv_r, terms["dv"], tol),
+        },
+    }
+    records, readings = {}, []
+    for name, outs in outputs.items():
+        got = {o: compare(*a) for o, a in outs.items() if a[0].numel()}
+        for o, r in got.items():
+            readings.append(f"{o} err {r['max_abs_err']:.3g} share {r['share']:.3g}")
+            if not r["share"] <= 1.0:
+                raise AssertionError(
+                    f"{name} disagrees with its plain version at {case}: {o} "
+                    f"reaches {r['share']:.3g}x of its limit (max abs err "
+                    f"{r['max_abs_err']}, rms {r['ref_rms']})"
+                )
+        records[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in got.values()),
+            "tol_share": max(r["share"] for r in got.values()),
+        }
+    print(f"block kernels ok at {case}: " + ", ".join(readings), flush=True)
+    if not timed:
+        return records
+
+    iters, plain_iters = 20, 3
+    for name, kernel, plain in (
+        ("flash_block_fwd", lambda: fa.flash_block_fwd(q, k, v, *offs),
+         lambda: fa.flash_block_fwd_reference(q, k, v, *offs)),
+        ("flash_block_bwd_dq", lambda: fa.flash_block_bwd_dq(*args),
+         lambda: fa.flash_block_bwd_dq_reference(*args)),
+        ("flash_block_bwd_dkv", lambda: fa.flash_block_bwd_dkv(*args),
+         lambda: fa.flash_block_bwd_dkv_reference(*args)),
+    ):
+        records[name]["ms"] = time_ms(kernel, iters)
+        records[name]["plain_ms"] = time_ms(plain, plain_iters, 1)
+    # Yardstick for out only: SDPA has no lse cotangent, so no backward
+    # call computes the block kernels' gradients. At (0,0) the block is
+    # causal, at (1024,0) every key is visible.
+    causal = q_off < k_off + Skv - 1
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    records["flash_block_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True
+        ), iters,
+    )
+    records["flash_block_fwd"]["library_call"] = (
+        f"F.scaled_dot_product_attention forward, is_causal={causal}"
+    )
+    for name in BLOCK_KERNELS[1:]:
+        records[name]["library_ms"] = None
+        records[name]["library_call"] = (
+            "none: no PyTorch call takes the lse cotangent"
+        )
+    visible = int(fa._keep(q, k, True, q_off, k_off).sum())
+    for name, (b_ms, b_by) in bounds(
+        B, Sq, Hq, Hkv, D, str(dtype)[6:], True, Skv=Skv, pairs=visible,
+        names=BLOCK_KERNELS, rows_in=3,
+    ).items():
+        records[name]["bound_ms"] = b_ms
+        records[name]["bound_by"] = b_by
+    print(f"timing block kernels at offsets {offs}: " + ", ".join(
+        f"{n} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f} {r['bound_by']})" for n, r in records.items()
+    ) + f", SDPA fwd {records['flash_block_fwd']['library_ms']:.4f} ms", flush=True)
+    return records
+
+
+# Ring limit, |ring - plain| <= 1.28 * 2^-8 * (c_T * T + c_x * |plain|)
+# + 1e-5 * rms(plain), element by element, against the full-sequence plain
+# version in bf16. Beside the roundings that both sides make (P or dS and
+# the output, each up to 2^-8 of its terms, as in ``TOL``), the ring rounds
+# once more per block: each block's out is rounded to bf16 before the fp32
+# merge (2^-8 of sum_b w_b |o_b| <= T), and in the backward the cotangent
+# that reaches each block's out is rounded to bf16 (2^-8 of each dO term),
+# and each shard's sp block gradients are summed in bf16 (sp - 1 roundings
+# of up to 2^-8 of sum_b |grad_b| <= T). So out: c_T = 3, c_x = 2; dq, dk,
+# dv: c_T = sp + 3, c_x = 1, with T for dq and dk taken over the terms of dS
+# itself (``ring_term_sums``): the rounded cotangent enters dS through dP,
+# delta and dlse before they cancel. 1.28 is ``TOL``'s slack.
+RING_SLACK = 1.28
+
+
+def ring_term_sums(q, k, v, dout, lse, delta, sp: int) -> dict:
+    """``flash_attention_term_sums`` of the full sequence, with dq's and
+    dk's |dS| replaced by P * (A + Abar): A = |dO|.|V|^T, the terms of dP,
+    and Abar the P-weighted mean of A over the keys of each ring block,
+    which bounds the terms of that block's delta and dlse."""
+    import math
+
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    Hq, Hkv = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    terms = fa.flash_attention_term_sums(q, k, v, dout, lse, delta)
+    qf, kf = fa._heads_first(q), fa._heads_first(k, Hq // Hkv)
+    vf, dof = fa._heads_first(v, Hq // Hkv), fa._heads_first(dout)
+    keep = fa._keep(q, k, True)
+    p = fa._probs(fa._scores(qf, kf, keep, scale), lse, keep)
+    a = torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+    n = k.shape[1] // sp
+    for b in range(sp):
+        blk = slice(b * n, (b + 1) * n)
+        pb = p[..., blk]
+        mean = (pb * a[..., blk]).sum(-1, keepdim=True) / pb.sum(
+            -1, keepdim=True
+        ).clamp_min(1e-30)
+        a[..., blk] += mean
+    e = p * a
+    terms["dq"] = (torch.matmul(e, kf.abs()) * scale).permute(0, 2, 1, 3)
+    terms["dk"] = fa._kv_heads(
+        torch.matmul(e.transpose(-1, -2), qf.abs()) * scale, Hkv
+    )
+    return terms
+
+
+def check_ring(B, S, Hq, Hkv, D, sp, device, seed):
+    """``make_ring_attention`` on a mesh that repeats ``device`` sp times,
+    bf16, out and the gradients of <out, dO> against the plain
+    full-sequence versions; returns the block kernels' launches in the
+    ring's forward and backward and each output's reading against the ring
+    limit."""
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel import make_mesh, make_ring_attention
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        *shape, generator=g, device=dev
+    ).to(torch.bfloat16)
+    q, k, v, dout = mk(B, S, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D), mk(B, S, Hq, D)
+    ring = make_ring_attention(make_mesh(sp=sp, devices=[dev] * sp))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    out = ring(qg, kg, vg)
+    out.backward(dout)
+    launches = dict(fa.LAUNCHES)
+    out_r, lse_r = fa.flash_attention_fwd_reference(q, k, v)
+    delta_r = fa._delta(dout, out_r)
+    ref = (out_r, *fa.flash_attention_bwd_reference(q, k, v, dout, lse_r, delta_r))
+    terms = ring_term_sums(q, k, v, dout, lse_r, delta_r, sp)
+    outputs = {}
+    for name, got, plain in zip(("out", "dq", "dk", "dv"),
+                                (out.detach(), qg.grad, kg.grad, vg.grad), ref):
+        c_t, c_x = (3, 2) if name == "out" else (sp + 3, 1)
+        # compare()'s limit is tol * (|plain| + T'): tol carries c_x.
+        outputs[name] = compare(
+            got, plain, c_t * terms[name] / c_x, RING_SLACK * 2.0**-8 * c_x
+        )
+    return {"launches": launches, "outputs": outputs}
+
+
+def block_phase() -> dict:
+    import torch
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    main = {}
+    for i, offs in enumerate(BLOCK_OFFSETS):
+        rec = check_block_case(8, 1024, 1024, 12, 4, 64, bf16, *offs,
+                               timed=offs in ((0, 0), (1024, 0)), seed=10 + i)
+        if offs == (0, 0):
+            main = rec
+        elif offs == (1024, 0):
+            (OUT / "block_timing_1024_0.json").write_text(json.dumps(rec, indent=1))
+    check_block_case(2, 1024, 1024, 12, 4, 64, fp32, 1024, 512, timed=False, seed=20)
+    check_block_case(1, 200, 328, 4, 2, 32, fp32, 300, 100, timed=False, seed=21)
+
+    sp = 4
+    ring = check_ring(2, 4096, 12, 4, 64, sp, "cuda", seed=22)
+    for name in BLOCK_KERNELS:
+        if ring["launches"][name] != sp * sp:
+            raise AssertionError(
+                f"ring: {name} launched {ring['launches'][name]} times, "
+                f"want {sp * sp}: {ring['launches']}"
+            )
+    for name, r in ring["outputs"].items():
+        if not r["share"] <= 1.0:
+            raise AssertionError(
+                f"ring sp={sp} {name} reaches {r['share']:.3g}x of the ring "
+                f"limit (max abs err {r['max_abs_err']}, rms {r['ref_rms']})"
+            )
+    print(f"ring ok: sp={sp} B=2 S=4096 bf16, launches "
+          f"{ {n: ring['launches'][n] for n in BLOCK_KERNELS} }, " + ", ".join(
+              f"{n} err {r['max_abs_err']:.3g} share {r['share']:.3g}"
+              for n, r in ring["outputs"].items()
+          ), flush=True)
+    return main
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the quantize kernels against their plain versions and the wire
 # ---------------------------------------------------------------------------
 
 QMAX = {8: 127.0, 4: 7.0}
@@ -588,7 +866,7 @@ def quantize_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the fault-tolerant training path
+# Phases 5 to 7: the fault-tolerant training path
 # ---------------------------------------------------------------------------
 
 PATH_ARGS = [
@@ -597,13 +875,15 @@ PATH_ARGS = [
 ]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 QUANT_KERNELS = ("quantize", "dequantize")
+RING_ARGS = [a if a != "flash" else "ring" for a in PATH_ARGS]
 
 
-def path_phase(name: str, args, kernels) -> dict:
+def path_phase(name: str, args, kernels, absent=()) -> dict:
     """One kill/heal drill of two groups; raises unless both end at step 8
     with equal parameters and finite losses, every kernel in ``kernels``
-    launched in both groups. Each group's process counts its own launches
-    from 0, so the counts are this drill's alone."""
+    launched in both groups and none in ``absent``. Each group's process
+    counts its own launches from 0, so the counts are this drill's
+    alone."""
     import shutil
 
     from torchft_tpu_torch.drill import kill_heal_drill
@@ -629,6 +909,12 @@ def path_phase(name: str, args, kernels) -> dict:
         for kernel in kernels:
             if r["kernel_launches"][kernel] <= 0:
                 raise AssertionError(f"{name}: group {g} never launched {kernel}")
+        for kernel in absent:
+            if r["kernel_launches"][kernel] != 0:
+                raise AssertionError(
+                    f"{name}: group {g} launched {kernel} "
+                    f"{r['kernel_launches'][kernel]} times"
+                )
     if results[0]["param_sha256"] != results[1]["param_sha256"]:
         raise AssertionError(
             f"{name}: groups disagree after kill + heal: "
@@ -666,6 +952,7 @@ def main() -> int:
     build_kernels()
 
     records = kernel_phase()
+    records.update(block_phase())
     records.update(quantize_phase())
     path = path_phase("path", PATH_ARGS, FLASH_KERNELS)
     quantized = path_phase(
@@ -676,15 +963,18 @@ def main() -> int:
             "the quantized drill ended in the unquantized drill's parameters: "
             "the gradients were not quantized"
         )
+    ring = path_phase("ring path", RING_ARGS, BLOCK_KERNELS, absent=FLASH_KERNELS)
     for g in (0, 1):
-        a, b = path[g], quantized[g]
+        a, b, c = path[g], quantized[g], ring[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
               f"{json.dumps(a['median_phase_ms'])}, int8 {b['median_step_ms']:.1f} ms "
-              f"{json.dumps(b['median_phase_ms'])}", flush=True)
+              f"{json.dumps(b['median_phase_ms'])}, ring {c['median_step_ms']:.1f} ms "
+              f"{json.dumps(c['median_phase_ms'])}", flush=True)
 
     kernels = []
     for name, rec in records.items():
-        drill = quantized if name in QUANT_KERNELS else path
+        drill = (quantized if name in QUANT_KERNELS
+                 else ring if name in BLOCK_KERNELS else path)
         launches = sum(r["kernel_launches"][name] for r in drill.values())
         kernels.append({
             "name": name,
@@ -697,6 +987,9 @@ def main() -> int:
                 "flash_bwd_dkv": "torchft_tpu/ops/flash_attention.py:284",
                 "quantize": "torchft_tpu/ops/quantization.py:70",
                 "dequantize": "torchft_tpu/ops/quantization.py:138",
+                "flash_block_fwd": "torchft_tpu/ops/flash_attention.py:549",
+                "flash_block_bwd_dq": "torchft_tpu/ops/flash_attention.py:587",
+                "flash_block_bwd_dkv": "torchft_tpu/ops/flash_attention.py:620",
             }[name],
             "launches": launches,
             **rec,

@@ -183,4 +183,4 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(llama_debug(num_experts=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(llama_debug(attn_impl="ring"))
+        Transformer(llama_debug(attn_impl="ulysses"))

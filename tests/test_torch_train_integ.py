@@ -68,6 +68,33 @@ def test_two_groups_kill_heal_quantized_device_path(tmp_path):
     assert sha["device"] == sha["host"], sha
 
 
+# Covers a first-use build of the C++ binaries (~1 min) before the drill.
+@pytest.mark.timeout(300)
+def test_two_groups_kill_heal_ring_attention(tmp_path):
+    """``--attn ring`` (ring attention over the group's one-device mesh,
+    the dense fold at these short sequences): the same kill and heal ends
+    in bitwise-identical parameters."""
+    steps = 8
+    results = kill_heal_drill(
+        ["--model", "debug", "--attn", "ring", "--steps", str(steps),
+         "--device", "cpu"],
+        str(tmp_path / "results"),
+        str(tmp_path / "logs"),
+        kill_after_step=3,
+        timeout_s=200.0,
+        env={"OMP_NUM_THREADS": "1"},
+    )
+    healed = (tmp_path / "logs" / "group1.log").read_text()
+    assert "healing from replica_rank=0" in healed.split("SIGKILLed")[1]
+    assert "managed mesh" in healed
+    for r in results.values():
+        assert r["final_step"] == steps
+        assert r["losses"] and all(math.isfinite(x) for x in r["losses"])
+        # CPU tensors take the plain versions: no kernel launch is counted.
+        assert not any(r["kernel_launches"].values())
+    assert results[0]["param_sha256"] == results[1]["param_sha256"], results
+
+
 @pytest.mark.parametrize(
     "flags, item",
     [
@@ -75,7 +102,7 @@ def test_two_groups_kill_heal_quantized_device_path(tmp_path):
         (["--ckpt-transport", "pg-sharded"], "pg_transport"),
         (["--durable-dir", "x"], "durable"),
         (["--model", "moe"], "MoE"),
-        (["--attn", "ring"], "ring-attention"),
+        (["--attn", "ulysses"], "parallel/ulysses"),
     ],
 )
 def test_unported_flags_exit_naming_roadmap(flags, item):

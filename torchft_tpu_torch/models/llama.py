@@ -16,7 +16,7 @@ both packages compute the same function.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -43,9 +43,10 @@ class LlamaConfig:
     tie_embeddings: bool = False
     # Recompute each block in the backward pass (torch.utils.checkpoint).
     remat: bool = True
-    # 'dense' | 'flash'. flash = the hand-written CUDA kernels
-    # (ops/flash_attention.py), dense for lengths the flash gate refuses.
-    # 'ring' and 'ulysses' are not ported yet (ROADMAP.md, parallel/*).
+    # 'dense' | 'flash' | 'ring'. flash = the hand-written CUDA kernels
+    # (ops/flash_attention.py), dense for lengths the flash gate refuses;
+    # ring shards the sequence over the mesh's 'sp' axis (attn_fn).
+    # 'ulysses' is not ported yet (ROADMAP.md, parallel/ulysses).
     attn_impl: str = "dense"
     # Below this sequence length the 'flash' impl routes to dense.
     flash_min_seq: int = 2048
@@ -55,6 +56,8 @@ class LlamaConfig:
     flash_block_k: int = 512
     # Mixture of experts is not ported yet (ROADMAP.md, MoE); must stay 0.
     num_experts: int = 0
+    # Bound by parallel.train.build_model when attn_impl is 'ring'.
+    attn_fn: Optional[Callable[..., torch.Tensor]] = None
 
     @property
     def q_per_kv(self) -> int:
@@ -154,10 +157,15 @@ class RMSNorm(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
-        if cfg.attn_impl not in ("dense", "flash"):
+        if cfg.attn_impl not in ("dense", "flash", "ring"):
             raise NotImplementedError(
                 f"attn_impl={cfg.attn_impl!r} is not ported yet "
-                "(ROADMAP.md queue 1: parallel/* ring and ulysses attention)"
+                "(ROADMAP.md queue 1: parallel/ulysses)"
+            )
+        if cfg.attn_impl == "ring" and cfg.attn_fn is None:
+            raise ValueError(
+                "ring attention needs cfg.attn_fn: build the model with "
+                "parallel.train.build_model(cfg, mesh)"
             )
         self.cfg = cfg
         H, Dh = cfg.hidden_size, cfg.head_dim
@@ -175,7 +183,9 @@ class Attention(nn.Module):
         v = heads(_linear(x, self.wv.weight, cfg.dtype), cfg.num_kv_heads)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if (
+        if cfg.attn_impl == "ring":
+            out = cfg.attn_fn(q, k, v)
+        elif (
             cfg.attn_impl == "flash"
             and S >= cfg.flash_min_seq
             and supports(S, cfg.flash_block_q, cfg.flash_block_k)

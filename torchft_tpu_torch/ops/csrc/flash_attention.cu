@@ -1,24 +1,36 @@
-// Causal GQA flash attention for Hopper (sm_90a): forward, backward dq and
-// backward dk/dv, bound to Python through a plain C interface (ctypes).
+// GQA flash attention for Hopper (sm_90a): forward, backward dq and backward
+// dk/dv, over a whole causal sequence and over one offset block of a ring,
+// bound to Python through a plain C interface (ctypes).
 //
-// Replaces the three Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
-//   tft_flash_fwd     <- _flash_kernel          (forward, online softmax)
-//   tft_flash_bwd_dq  <- _flash_bwd_dq_kernel   (dq, P recomputed from lse)
-//   tft_flash_bwd_dkv <- _flash_bwd_dkv_kernel  (dk/dv over the GQA group)
+// Replaces the six Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
+//   tft_flash_fwd           <- _flash_kernel               (online softmax)
+//   tft_flash_bwd_dq        <- _flash_bwd_dq_kernel        (P from lse)
+//   tft_flash_bwd_dkv       <- _flash_bwd_dkv_kernel       (GQA group summed)
+//   tft_flash_block_fwd     <- _flash_block_fwd_kernel
+//   tft_flash_block_bwd_dq  <- _flash_block_bwd_dq_kernel
+//   tft_flash_block_bwd_dkv <- _flash_block_bwd_dkv_kernel
+// A block kernel is the same body with q [B, Sq, ...] against k/v
+// [B, Skv, ...], the causal mask taken at global positions (q row i is at
+// q_off + i, k row j at k_off + j; the key is visible iff
+// q_off + i >= k_off + j) and, in the backward, the lse cotangent dlse folded
+// into dS, since the ring merge differentiates through lse. The whole-sequence
+// kernels are the case q_off = k_off = 0, Sq = Skv, no dlse; each entry point
+// is its own launch.
 //
 // What each computes is the TPU kernel's function, not its block structure:
-//   s = (q . k) * scale in fp32, masked to -1e30 above the causal diagonal;
+//   s = (q . k) * scale in fp32, masked to -1e30 where the key is not visible;
 //   forward: online softmax over kv tiles, out = sum_j p_ij v_j / l_i with p
 //     rounded to the input dtype before the P.V product (as the TPU kernel's
 //     p.astype(v.dtype)), lse_i = m_i + log(l_i) in fp32;
-//   backward: p = exp(s - lse), dS = p * (dO.V^T - delta), with delta =
-//     rowsum(dO * O) computed by the caller; dq = dS.K * scale,
+//   backward: p = exp(s - lse), dS = p * (dO.V^T - delta [+ dlse]), with
+//     delta = rowsum(dO * O) computed by the caller; dq = dS.K * scale,
 //     dk = dS^T.Q * scale, dv = P^T.dO, dS and P rounded to the input dtype
 //     before their products, every sum accumulated in fp32.
 //
 // Layout: q/out/dq/dO are [B, S, Hq, D] and k/v/dk/dv [B, S, Hkv, D], read
 // and written through their (batch, seq, head) strides with D contiguous, so
-// the model's layout needs no transpose. lse and delta are fp32 [B, Hq, S].
+// the model's layout needs no transpose. lse, delta and dlse are fp32
+// [B, Hq, Sq].
 // q head h reads kv head h / (Hq / Hkv).
 //
 // What bounds it on the H100, and what the design does about it. At the
@@ -31,7 +43,8 @@
 // mma/wgmma is later work. Within that, the design keeps the FMA units fed:
 //   - One thread block of 256 threads per (q tile of 64 rows, head, batch)
 //     (per kv tile of 64 rows for dk/dv). A loop inside the block walks the
-//     kv tiles up to the diagonal (q tiles from the diagonal for dk/dv): this
+//     kv tiles the mask keeps (the q tiles, for dk/dv; at zero offsets, up to
+//     and from the diagonal): this
 //     loop replaces the TPU's sequential grid axis, whose VMEM scratch carries
 //     the running max/sum/accumulator between grid steps. Nothing carries
 //     between CUDA blocks; here the running state lives in registers.
@@ -39,15 +52,24 @@
 //     products are stored transposed ([D][64]) so that each thread reads four
 //     rows or columns with one 16-byte load per d; each thread owns a 4x4
 //     block of the 64x64 score tile (16 FMAs per pair of loads).
-//   - Tiles strictly above the causal diagonal are never visited; only the
-//     diagonal tile is masked. q and kv tiles have the same size (64), so the
-//     diagonal is always one tile.
+//   - A (q tile, kv tile) pair whose keys all lie after all its queries is
+//     never visited: the TPU block kernel's skip predicate
+//     k0 + k_off <= q0 + q_off + 63, at 64-row tiles. The tiles a q tile
+//     visits are a prefix of the kv tiles, and the q tiles that visit a kv
+//     tile a suffix, so the loops only run over those. Elements are masked
+//     in the visited tiles only (at zero offsets: the diagonal tile).
+//   - A row of a block whose tiles were all skipped (a k/v block wholly in
+//     the q shard's future) writes out 0 and lse = -1e30 + log(1e-30), which
+//     is -1e30 in fp32, never NaN or -inf: the ring merge weighs it to 0.
+//     A row that sees no key inside a visited tile gets P = exp(0) = 1 there,
+//     as the TPU kernel does; only offsets that are not multiples of the
+//     shard make such rows, and the ring never does.
 //   - dk/dv loop over the q_per_kv heads of the GQA group and their q tiles
 //     inside one block, so each kv row's gradient is summed by one thread in
 //     a fixed order: no atomics, the result is the same run to run.
 //   - Masked scores are -1e30, not -inf, so exp(m_prev - m_new) is never NaN.
 //   - Shared memory above 48 KB is opted into with cudaFuncSetAttribute
-//     (dk/dv at D = 128 uses 229,888 of the 232,448 bytes a block may have).
+//     (dk/dv at D = 128 uses 230,144 of the 232,448 bytes a block may have).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -214,6 +236,40 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
+// Which keys a query sees. The whole-sequence kernels pass q_off = k_off = 0
+// and Sq = Skv; the block kernels the ring's global offsets.
+struct Mask {
+  int Sq, Skv;       // rows of q and of k/v
+  int q_off, k_off;  // global positions of q row 0 and of k row 0
+  int causal;
+};
+
+// Key `col` is hidden from query `row` (or either lies past its tensor).
+__device__ __forceinline__ bool hidden(const Mask& m, int row, int col) {
+  return row >= m.Sq || col >= m.Skv ||
+         (m.causal && col + m.k_off > row + m.q_off);
+}
+
+// The kv tiles the q tile at row q0 visits are 0 .. end-1: kv tile kt runs
+// iff kt * 64 + k_off <= q0 + q_off + 63.
+__device__ __forceinline__ int kv_tiles_end(const Mask& m, int q0) {
+  const int n_kv = (m.Skv + kTile - 1) / kTile;
+  if (!m.causal) return n_kv;
+  const long long last = (long long)q0 + m.q_off + kTile - 1 - m.k_off;
+  if (last < 0) return 0;
+  return (int)min((long long)n_kv, last / kTile + 1);
+}
+
+// The q tiles that visit the kv tile at row k0 are begin .. n_q-1: q tile qt
+// runs iff qt * 64 >= k0 + k_off - q_off - 63.
+__device__ __forceinline__ int q_tiles_begin(const Mask& m, int k0) {
+  if (!m.causal) return 0;
+  const long long first = (long long)k0 + m.k_off - m.q_off - (kTile - 1);
+  if (first <= 0) return 0;
+  return (int)min((long long)(m.Sq + kTile - 1) / kTile,
+                  (first + kTile - 1) / kTile);
+}
+
 // ---------------------------------------------------------------------------
 // Forward. Grid (q tiles, Hq, B). Shared: Qt [D][64], Kt [D][64],
 // V [64][D], Pt [64][64] (P transposed: kv index major).
@@ -222,8 +278,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int Hq, int q_per_kv,
-                 Strides qs, Strides ks, int causal, float scale) {
+                 float* __restrict__ lse, Mask m, int Hq, int q_per_kv,
+                 Strides qs, Strides ks, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;
   float* Kt = Qt + D * kTile;
@@ -243,7 +299,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * ks.b + hk * ks.h;
-  load_tile_t<T, D>(Qt, qb, qs.s, q0, S);
+  load_tile_t<T, D>(Qt, qb, qs.s, q0, m.Sq);
 
   float m_i[4], l_i[4], o[4][DC];
 #pragma unroll
@@ -254,13 +310,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jd = 0; jd < DC; ++jd) o[i][jd] = 0.f;
   }
 
-  const int n_kv = (S + kTile - 1) / kTile;
-  const int kv_end = causal ? min(qt + 1, n_kv) : n_kv;
+  const int kv_end = kv_tiles_end(m, q0);
   for (int kt = 0; kt < kv_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // previous tile's readers are done
-    load_tile_t<T, D>(Kt, kb, ks.s, k0, S);
-    load_tile<T, D>(Vs, vb, ks.s, k0, S);
+    load_tile_t<T, D>(Kt, kb, ks.s, k0, m.Skv);
+    load_tile<T, D>(Vs, vb, ks.s, k0, m.Skv);
     __syncthreads();
 
     float s[4][4] = {};
@@ -274,7 +329,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tc * 4 + j;
         float x = s[i][j] * scale;
-        if (col >= S || (causal && col > row)) x = kNegInf;
+        // Rows past Sq are never written, so only the key side is checked.
+        if (col >= m.Skv || (m.causal && col + m.k_off > row + m.q_off))
+          x = kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -298,12 +355,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mm_pv<D>(o, Pt, tr * 4, Vs, tc * DC);
   }
 
+  // A row with no visited tile keeps l = 0 and m = -1e30: out 0 and
+  // lse = -1e30 + log(1e-30), which is -1e30 in fp32.
   T* ob = out + b * qs.b + h * qs.h;
-  float* lb = lse + ((long long)b * Hq + h) * S;
+  float* lb = lse + ((long long)b * Hq + h) * m.Sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
-    if (row >= S) continue;
+    if (row >= m.Sq) continue;
     const float denom = fmaxf(l_i[i], 1e-30f);
     const float inv = 1.f / denom;
 #pragma unroll
@@ -316,16 +375,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // Backward dq. Grid (q tiles, Hq, B). Shared: Qt, dOt, Kt, Vt [D][64],
-// K [64][D], dSt [64][64].
+// K [64][D], dSt [64][64]. dlse is null for the whole-sequence kernel.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int Hq, int q_per_kv, Strides qs, Strides ks,
-                    int causal, float scale) {
+                    const float* __restrict__ delta,
+                    const float* __restrict__ dlse, T* __restrict__ dq,
+                    Mask m, int Hq, int q_per_kv, Strides qs, Strides ks,
+                    float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;
   float* dOt = Qt + D * kTile;
@@ -345,29 +405,29 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * ks.b + hk * ks.h;
-  load_tile_t<T, D>(Qt, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile_t<T, D>(dOt, dout + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_tile_t<T, D>(Qt, q + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
+  load_tile_t<T, D>(dOt, dout + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
 
-  const float* lb = lse + ((long long)b * Hq + h) * S;
-  const float* db = delta + ((long long)b * Hq + h) * S;
-  float lse_i[4], delta_i[4], acc[4][DC];
+  const long long row0 = ((long long)b * Hq + h) * m.Sq;
+  float lse_i[4], delta_i[4], dlse_i[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
-    lse_i[i] = row < S ? lb[row] : 0.f;
-    delta_i[i] = row < S ? db[row] : 0.f;
+    const bool in = row < m.Sq;
+    lse_i[i] = in ? lse[row0 + row] : 0.f;
+    delta_i[i] = in ? delta[row0 + row] : 0.f;
+    dlse_i[i] = in && dlse != nullptr ? dlse[row0 + row] : 0.f;
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd) acc[i][jd] = 0.f;
   }
 
-  const int n_kv = (S + kTile - 1) / kTile;
-  const int kv_end = causal ? min(qt + 1, n_kv) : n_kv;
+  const int kv_end = kv_tiles_end(m, q0);
   for (int kt = 0; kt < kv_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile_t<T, D>(Kt, kb, ks.s, k0, S);
-    load_tile_t<T, D>(Vt, vb, ks.s, k0, S);
-    load_tile<T, D>(Ks, kb, ks.s, k0, S);
+    load_tile_t<T, D>(Kt, kb, ks.s, k0, m.Skv);
+    load_tile_t<T, D>(Vt, vb, ks.s, k0, m.Skv);
+    load_tile<T, D>(Ks, kb, ks.s, k0, m.Skv);
     __syncthreads();
 
     float s[4][4] = {};
@@ -380,9 +440,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tc * 4 + j;
-        const bool masked = row >= S || col >= S || (causal && col > row);
-        const float p = masked ? 0.f : __expf(s[i][j] * scale - lse_i[i]);
-        s[i][j] = p * (dp[i][j] - delta_i[i]);  // dS
+        const float p =
+            hidden(m, row, col) ? 0.f : __expf(s[i][j] * scale - lse_i[i]);
+        float dsum = dp[i][j] - delta_i[i];
+        if (dlse != nullptr) dsum += dlse_i[i];  // the TPU kernel's order
+        s[i][j] = p * dsum;                      // dS
       }
     }
     store_t<T>(dSt, s, tr * 4, tc * 4);
@@ -394,7 +456,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
-    if (row >= S) continue;
+    if (row >= m.Sq) continue;
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd)
       Elem<T>::store(qb + (long long)row * qs.s + tc * DC + jd,
@@ -404,16 +466,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // Backward dk/dv. Grid (kv tiles, Hkv, B). Shared: Kt, Vt, Qt, dOt [D][64],
-// Q, dO [64][D], P, dS [64 q][64 kv], lse and delta of the q tile [64].
+// Q, dO [64][D], P, dS [64 q][64 kv], lse, delta and dlse of the q tile [64].
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int Hq, int q_per_kv,
-                     Strides qs, Strides ks, int causal, float scale) {
+                     const float* __restrict__ delta,
+                     const float* __restrict__ dlse, T* __restrict__ dk,
+                     T* __restrict__ dv, Mask m, int Hq, int q_per_kv,
+                     Strides qs, Strides ks, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;
   float* Vt = Kt + D * kTile;
@@ -425,6 +488,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSs = Ps + kTile * kTile;
   float* lse_s = dSs + kTile * kTile;
   float* delta_s = lse_s + kTile;
+  float* dlse_s = delta_s + kTile;
   constexpr int DC = D / 16;
 
   const int kt = gridDim.x - 1 - blockIdx.x;  // early kv tiles do most work
@@ -434,8 +498,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
 
-  load_tile_t<T, D>(Kt, k + b * ks.b + hk * ks.h, ks.s, k0, S);
-  load_tile_t<T, D>(Vt, v + b * ks.b + hk * ks.h, ks.s, k0, S);
+  load_tile_t<T, D>(Kt, k + b * ks.b + hk * ks.h, ks.s, k0, m.Skv);
+  load_tile_t<T, D>(Vt, v + b * ks.b + hk * ks.h, ks.s, k0, m.Skv);
 
   float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
@@ -446,25 +510,26 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dv_acc[i][jd] = 0.f;
     }
 
-  const int n_q = (S + kTile - 1) / kTile;
-  const int q_begin = causal ? kt : 0;
+  const int n_q = (m.Sq + kTile - 1) / kTile;
+  const int q_begin = q_tiles_begin(m, k0);
   for (int g = 0; g < q_per_kv; ++g) {
     const int h = hk * q_per_kv + g;
     const T* qb = q + b * qs.b + h * qs.h;
     const T* ob = dout + b * qs.b + h * qs.h;
-    const float* lb = lse + ((long long)b * Hq + h) * S;
-    const float* db = delta + ((long long)b * Hq + h) * S;
+    const long long row0 = ((long long)b * Hq + h) * m.Sq;
     for (int qt = q_begin; qt < n_q; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();
-      load_tile_t<T, D>(Qt, qb, qs.s, q0, S);
-      load_tile_t<T, D>(dOt, ob, qs.s, q0, S);
-      load_tile<T, D>(Qs, qb, qs.s, q0, S);
-      load_tile<T, D>(dOs, ob, qs.s, q0, S);
+      load_tile_t<T, D>(Qt, qb, qs.s, q0, m.Sq);
+      load_tile_t<T, D>(dOt, ob, qs.s, q0, m.Sq);
+      load_tile<T, D>(Qs, qb, qs.s, q0, m.Sq);
+      load_tile<T, D>(dOs, ob, qs.s, q0, m.Sq);
       if (threadIdx.x < kTile) {
         const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < S ? lb[row] : 0.f;
-        delta_s[threadIdx.x] = row < S ? db[row] : 0.f;
+        const bool in = row < m.Sq;
+        lse_s[threadIdx.x] = in ? lse[row0 + row] : 0.f;
+        delta_s[threadIdx.x] = in ? delta[row0 + row] : 0.f;
+        dlse_s[threadIdx.x] = in && dlse != nullptr ? dlse[row0 + row] : 0.f;
       }
       __syncthreads();
 
@@ -479,13 +544,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = q0 + qi;
         const float l = lse_s[qi];
         const float dl = delta_s[qi];
+        const float dll = dlse_s[qi];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int col = k0 + tr * 4 + i;
-          const bool masked = row >= S || col >= S || (causal && col > row);
-          const float p = masked ? 0.f : __expf(st[i][j] * scale - l);
-          dpt[i][j] = p * (dpt[i][j] - dl);  // dS^T
-          st[i][j] = p;                      // P^T
+          const float p =
+              hidden(m, row, col) ? 0.f : __expf(st[i][j] * scale - l);
+          float dsum = dpt[i][j] - dl;
+          if (dlse != nullptr) dsum += dll;
+          dpt[i][j] = p * dsum;  // dS^T
+          st[i][j] = p;          // P^T
         }
       }
       store_t<T>(Ps, st, tr * 4, tc * 4);
@@ -501,7 +569,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + tr * 4 + i;
-    if (row >= S) continue;
+    if (row >= m.Skv) continue;
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd) {
       Elem<T>::store(kb + (long long)row * ks.s + tc * DC + jd,
@@ -522,7 +590,7 @@ constexpr size_t dq_smem() {
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (6 * D * kTile + 2 * kTile * kTile + 2 * kTile);
+  return sizeof(float) * (6 * D * kTile + 2 * kTile * kTile + 3 * kTile);
 }
 
 template <typename Kernel>
@@ -532,52 +600,72 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// One launch's sizes, strides and mask.
+struct Problem {
+  int B, Hq, Hkv;
+  Strides qs, ks;
+  Mask m;
+  float scale;
+};
+
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int S, int Hq, int Hkv, Strides qs,
-               Strides ks, int causal, float scale, cudaStream_t stream) {
+               float* lse, Problem p, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, fwd_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTile - 1) / kTile, Hq, B);
+  dim3 grid((p.m.Sq + kTile - 1) / kTile, p.Hq, p.B);
   kernel<<<grid, kThreads, fwd_smem<D>(), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, S, Hq, Hq / Hkv,
-      qs, ks, causal, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, p.m, p.Hq,
+      p.Hq / p.Hkv, p.qs, p.ks, p.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int B, int S,
-              int Hq, int Hkv, Strides qs, Strides ks, int causal,
-              float scale, cudaStream_t stream) {
+              const float* lse, const float* delta, const float* dlse,
+              void* dq, Problem p, cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, dq_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTile - 1) / kTile, Hq, B);
+  dim3 grid((p.m.Sq + kTile - 1) / kTile, p.Hq, p.B);
   kernel<<<grid, kThreads, dq_smem<D>(), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, S, Hq, Hq / Hkv, qs, ks, causal, scale);
+      dlse, (T*)dq, p.m, p.Hq, p.Hq / p.Hkv, p.qs, p.ks, p.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int B, int S, int Hq, int Hkv, Strides qs, Strides ks,
-               int causal, float scale, cudaStream_t stream) {
+               const float* lse, const float* delta, const float* dlse,
+               void* dk, void* dv, Problem p, cudaStream_t stream) {
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, dkv_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTile - 1) / kTile, Hkv, B);
+  dim3 grid((p.m.Skv + kTile - 1) / kTile, p.Hkv, p.B);
   kernel<<<grid, kThreads, dkv_smem<D>(), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, S, Hq, Hq / Hkv, qs, ks, causal, scale);
+      dlse, (T*)dk, (T*)dv, p.m, p.Hq, p.Hq / p.Hkv, p.qs, p.ks, p.scale);
   return (int)cudaGetLastError();
 }
 
 // Returned for a head_dim or dtype code the library was not built for.
 constexpr int kUnsupported = -1;
+
+Problem make_problem(int B, int Sq, int Skv, int Hq, int Hkv, long long qsb,
+                     long long qss, long long qsh, long long ksb,
+                     long long kss, long long ksh, int q_off, int k_off,
+                     int causal, float scale) {
+  Problem p;
+  p.B = B;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.qs = Strides{qsb, qss, qsh};
+  p.ks = Strides{ksb, kss, ksh};
+  p.m = Mask{Sq, Skv, q_off, k_off, causal};
+  p.scale = scale;
+  return p;
+}
 
 }  // namespace
 
@@ -604,15 +692,16 @@ constexpr int kUnsupported = -1;
 
 extern "C" {
 
+// Whole-sequence kernels: q [B, S, Hq, D], k/v [B, S, Hkv, D], causal or not.
+
 int tft_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int S, int Hq, int Hkv, int D,
                   long long qsb, long long qss, long long qsh, long long ksb,
                   long long kss, long long ksh, int causal, int dtype,
                   float scale, void* stream) {
-  const Strides qs{qsb, qss, qsh};
-  const Strides ks{ksb, kss, ksh};
-  TFT_DISPATCH(launch_fwd, q, k, v, out, (float*)lse, B, S, Hq, Hkv, qs, ks,
-               causal, scale, (cudaStream_t)stream);
+  const Problem p = make_problem(B, S, S, Hq, Hkv, qsb, qss, qsh, ksb, kss,
+                                 ksh, 0, 0, causal, scale);
+  TFT_DISPATCH(launch_fwd, q, k, v, out, (float*)lse, p, (cudaStream_t)stream);
 }
 
 int tft_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -621,11 +710,10 @@ int tft_flash_bwd_dq(const void* q, const void* k, const void* v,
                      long long qsb, long long qss, long long qsh,
                      long long ksb, long long kss, long long ksh, int causal,
                      int dtype, float scale, void* stream) {
-  const Strides qs{qsb, qss, qsh};
-  const Strides ks{ksb, kss, ksh};
+  const Problem p = make_problem(B, S, S, Hq, Hkv, qsb, qss, qsh, ksb, kss,
+                                 ksh, 0, 0, causal, scale);
   TFT_DISPATCH(launch_dq, q, k, v, dout, (const float*)lse,
-               (const float*)delta, dq, B, S, Hq, Hkv, qs, ks, causal, scale,
-               (cudaStream_t)stream);
+               (const float*)delta, nullptr, dq, p, (cudaStream_t)stream);
 }
 
 int tft_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -634,11 +722,55 @@ int tft_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       int D, long long qsb, long long qss, long long qsh,
                       long long ksb, long long kss, long long ksh, int causal,
                       int dtype, float scale, void* stream) {
-  const Strides qs{qsb, qss, qsh};
-  const Strides ks{ksb, kss, ksh};
+  const Problem p = make_problem(B, S, S, Hq, Hkv, qsb, qss, qsh, ksb, kss,
+                                 ksh, 0, 0, causal, scale);
   TFT_DISPATCH(launch_dkv, q, k, v, dout, (const float*)lse,
-               (const float*)delta, dk, dv, B, S, Hq, Hkv, qs, ks, causal,
-               scale, (cudaStream_t)stream);
+               (const float*)delta, nullptr, dk, dv, p, (cudaStream_t)stream);
+}
+
+// Block kernels: q [B, Sq, Hq, D] against k/v [B, Skv, Hkv, D], causal at
+// global positions q_off + i >= k_off + j; the backward folds dlse [B, Hq, Sq]
+// into dS.
+
+int tft_flash_block_fwd(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int Sq, int Skv, int Hq,
+                        int Hkv, int D, long long qsb, long long qss,
+                        long long qsh, long long ksb, long long kss,
+                        long long ksh, int q_off, int k_off, int dtype,
+                        float scale, void* stream) {
+  const Problem p = make_problem(B, Sq, Skv, Hq, Hkv, qsb, qss, qsh, ksb,
+                                 kss, ksh, q_off, k_off, 1, scale);
+  TFT_DISPATCH(launch_fwd, q, k, v, out, (float*)lse, p, (cudaStream_t)stream);
+}
+
+int tft_flash_block_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, const void* dlse, void* dq,
+                           int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                           long long qsb, long long qss, long long qsh,
+                           long long ksb, long long kss, long long ksh,
+                           int q_off, int k_off, int dtype, float scale,
+                           void* stream) {
+  const Problem p = make_problem(B, Sq, Skv, Hq, Hkv, qsb, qss, qsh, ksb,
+                                 kss, ksh, q_off, k_off, 1, scale);
+  TFT_DISPATCH(launch_dq, q, k, v, dout, (const float*)lse,
+               (const float*)delta, (const float*)dlse, dq, p,
+               (cudaStream_t)stream);
+}
+
+int tft_flash_block_bwd_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, const void* dlse, void* dk,
+                            void* dv, int B, int Sq, int Skv, int Hq,
+                            int Hkv, int D, long long qsb, long long qss,
+                            long long qsh, long long ksb, long long kss,
+                            long long ksh, int q_off, int k_off, int dtype,
+                            float scale, void* stream) {
+  const Problem p = make_problem(B, Sq, Skv, Hq, Hkv, qsb, qss, qsh, ksb,
+                                 kss, ksh, q_off, k_off, 1, scale);
+  TFT_DISPATCH(launch_dkv, q, k, v, dout, (const float*)lse,
+               (const float*)delta, (const float*)dlse, dk, dv, p,
+               (cudaStream_t)stream);
 }
 
 }  // extern "C"

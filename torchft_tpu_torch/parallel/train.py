@@ -1,23 +1,39 @@
 """The inner training step of one replica group: loss, gradients, optimizer.
 
-The mesh-free part of ``torchft_tpu/parallel/train.py``: the chunked vocab
-loss, ``grad_step`` (the DDP variant: the optimizer applies after the
-Manager's replica-axis gradient allreduce) and the default AdamW. Meshes and
-sharding inside a replica group are not ported yet (ROADMAP.md, parallel/*).
+The port of ``torchft_tpu/parallel/train.py`` without its sharding:
+``build_model`` (binds ring attention to a mesh), the chunked vocab loss,
+``grad_step`` (the DDP variant: the optimizer applies after the Manager's
+replica-axis gradient allreduce) and the default AdamW. Sharding parameters
+and batches inside a replica group is not ported yet (ROADMAP.md queue 1,
+``parallel/sharding.py`` + FSDP2).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+import dataclasses
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from torchft_tpu_torch import knobs as _knobs
-from torchft_tpu_torch.models.llama import Transformer
+from torchft_tpu_torch.models.llama import LlamaConfig, Transformer
+from torchft_tpu_torch.parallel.mesh import Mesh
+from torchft_tpu_torch.parallel.ring_attention import make_ring_attention
 
 Batch = Dict[str, torch.Tensor]
+
+
+def build_model(cfg: LlamaConfig, mesh: Optional[Mesh] = None) -> Transformer:
+    """The model of ``cfg``, with ring attention bound to ``mesh`` when
+    ``cfg.attn_impl == 'ring'`` (the JAX package's ``build_model``;
+    'ulysses' is not ported and the model raises)."""
+    if cfg.attn_impl == "ring":
+        if mesh is None:
+            raise ValueError("ring attention requires a mesh")
+        cfg = dataclasses.replace(cfg, attn_fn=make_ring_attention(mesh))
+    return Transformer(cfg)
 
 
 def default_optimizer(params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:

@@ -1,10 +1,10 @@
 """Fault-tolerant training of the Llama decoder on one device per replica
 group: the PyTorch twin of the repo root's ``train_hsdp.py`` loop with an
-inner mesh of one device.
+inner mesh of one device (``auto_mesh`` over the group's device).
 
 Per step: ``manager.start_quorum()``, the grad step, the replica-axis
-gradient average (``DistributedDataParallel.allreduce_grads``, the call
-``ManagedMesh.allreduce_grads`` delegates to), the fenced
+gradient average (``ManagedMesh.allreduce_grads``, which delegates to
+``DistributedDataParallel.allreduce_grads``), the fenced
 ``manager.should_commit()``, and the AdamW apply. A killed group restarts,
 heals params + optimizer state from a healthy peer (host numpy over the HTTP
 checkpoint transport) and rejoins; groups that commit step k hold
@@ -18,6 +18,11 @@ Run two replica groups against one lighthouse (both may share one card)::
       python -m torchft_tpu_torch.train_hsdp --model small --attn flash \\
           --batch 8 --seq 1024 --min-replicas 2 --steps 8 --result-dir out &
     done
+
+``--attn ring`` runs attention as ring attention over the mesh's ``sp``
+axis (``parallel/ring_attention.py``); on one device ``sp`` is 1, so each
+layer folds one block with the offset-block flash kernels, as the JAX
+trainer does on one chip.
 
 ``--quantize`` (``--quantize-bits 4`` for int4) quantizes the replica-axis
 gradient allreduce: on CUDA gradients with the CUDA kernels of
@@ -47,7 +52,6 @@ _UNPORTED = {
     "durable_dir": "queue 1: checkpointing/durable",
     "moe": "queue 1: MoE / expert parallelism",
     "pipeline": "queue 1: parallel/pipeline",
-    "ring": "kernel queue: ring-attention block kernels + parallel/*",
     "ulysses": "queue 1: parallel/ulysses",
 }
 
@@ -85,7 +89,9 @@ def _parse(argv=None) -> argparse.Namespace:
         "--attn", choices=["default", "flash", "ring", "ulysses"],
         default="default",
         help="'flash': the CUDA flash-attention kernels from S >= 1024; "
-        "'default' keeps the model preset's impl",
+        "'ring': ring attention over the mesh's sp axis (the CUDA block "
+        "kernels for shards of 256 tokens or more); 'default' keeps the "
+        "model preset's impl",
     )
     parser.add_argument("--quantize-bits", type=int, default=8, choices=(8, 4))
     parser.add_argument(
@@ -110,7 +116,6 @@ def _parse(argv=None) -> argparse.Namespace:
             ("durable_dir", args.durable_dir is not None),
             ("moe", args.model == "moe"),
             ("pipeline", args.model == "pipeline"),
-            ("ring", args.attn == "ring"),
             ("ulysses", args.attn == "ulysses"),
         ) if on
     ]
@@ -142,31 +147,39 @@ def main(argv=None) -> int:
     import torch
 
     from torchft_tpu_torch import telemetry
-    from torchft_tpu_torch.ddp import DistributedDataParallel
+    from torchft_tpu_torch.device_mesh import ft_init_device_mesh
     from torchft_tpu_torch.manager import Manager
-    from torchft_tpu_torch.models import Transformer, llama_debug, llama_small
+    from torchft_tpu_torch.models import llama_debug, llama_small
     from torchft_tpu_torch.ops import flash_attention, quantization
     from torchft_tpu_torch.optim import (
         load_optimizer_state_dict,
         optimizer_state_dict,
     )
-    from torchft_tpu_torch.parallel.train import default_optimizer, grad_step
+    from torchft_tpu_torch.parallel import auto_mesh
+    from torchft_tpu_torch.parallel.train import (
+        build_model,
+        default_optimizer,
+        grad_step,
+    )
     from torchft_tpu_torch.process_group import make_process_group
 
     device = _device(args.device)
     group = os.environ.get("REPLICA_GROUP_ID", "0")
+    mesh = auto_mesh(1, devices=[device])  # one device per replica group
     B, S = args.batch, args.seq
     cfg = {"debug": llama_debug, "small": llama_small}[args.model]()
     if args.attn == "flash":
         # bench.py's flash setting: the kernels from S >= 1024.
         cfg = dataclasses.replace(cfg, attn_impl="flash", flash_min_seq=1024)
+    elif args.attn == "ring":
+        cfg = dataclasses.replace(cfg, attn_impl="ring")
     # No block recompute: one replica group's activations at these sizes
     # fit the card, and recompute would run every block's forward (and its
     # attention kernel) twice per step.
     cfg = dataclasses.replace(cfg, remat=False)
 
     torch.manual_seed(0)  # same initial weights in every group
-    model = Transformer(cfg).to(device)
+    model = build_model(cfg, mesh).to(device)
     optimizer = default_optimizer(model.parameters())
     params = dict(model.named_parameters())
 
@@ -182,7 +195,11 @@ def main(argv=None) -> int:
         connect_timeout=30.0,
         max_retries=20,
     )
-    ddp = DistributedDataParallel(manager)
+    mm = ft_init_device_mesh(manager, mesh=mesh)
+    logging.info(
+        "managed mesh: %r; hsdp view %s; world size %d", mm,
+        mm[("replica", "fsdp")].shape(), mm.flatten(name="world").size(),
+    )
 
     def sync() -> None:
         if device.type == "cuda":
@@ -225,7 +242,7 @@ def main(argv=None) -> int:
             loss, grads = grad_step(model, batch)
             sync()
             t_grad = time.perf_counter()
-            grads = ddp.allreduce_grads(
+            grads = mm.allreduce_grads(
                 grads,
                 should_quantize=args.quantize,
                 quantize_bits=args.quantize_bits,

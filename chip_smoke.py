@@ -31,19 +31,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bits and dequantized bits, at the quantized path's bucket sizes (the
    chunked embedding and lm_head buckets included) and on special values.
    Timed at a 32 MiB bucket beside the plain versions and their bound.
-5. Path: the C++ lighthouse and two replica groups of
+5. Fused reduce kernel and the kernel harness: the int8 reduce against its
+   plain version on the card AND against the host's reduce (each rank's
+   payload dequantized and summed in rank order, divided by R if averaging,
+   requantized by ``collectives.quantize_blockwise``), bit for bit, for
+   R = 2, 3, 4 with and without averaging, on 1, 5 and 4096 rows and on
+   special rows; timed at a 32 MiB bucket with R = 2 and R = 4 beside its
+   plain version and its bound. Then ``python -m
+   torchft_tpu_torch.ops.bench_kernels`` in a process of its own: exit 0,
+   ``ok`` true and every kernel of ``ops`` launched in it (the harness is
+   the one path that runs the reduce: the training path reduces on the
+   host).
+6. Path: the C++ lighthouse and two replica groups of
    ``python -m torchft_tpu_torch.train_hsdp --model small --attn flash
    --batch 8 --seq 1024 --steps 8`` on the card; group 1 is SIGKILLed after
    step 3 and restarted, heals from group 0, and both must end at step 8
    with bitwise-equal parameters, finite losses, and every flash kernel
    launched in both groups.
-6. Quantized path: the same drill with ``--quantize`` (int8); both
+7. Quantized path: the same drill with ``--quantize`` (int8); both
    quantize kernels must launch in both groups too, and the final
    parameters must differ from the unquantized drill's.
-7. Ring path: the same drill with ``--attn ring`` (sp=1 on one card: one
+8. Ring path: the same drill with ``--attn ring`` (sp=1 on one card: one
    block per layer); the three block kernels must launch in both groups,
    the whole-sequence flash kernels never.
-8. The ``{"kernels": [...]}`` line, the card line, and the last line:
+9. The ``{"kernels": [...]}`` line, the card line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
@@ -866,7 +877,211 @@ def quantize_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 to 7: the fault-tolerant training path
+# Phase 5: the fused reduce kernel, and the kernel harness
+# ---------------------------------------------------------------------------
+
+REDUCE_RANKS = (2, 3, 4)
+REDUCE_ROWS = (1, 5, 4096)
+TIMED_RANKS = (2, 4)  # the drills' two groups, and the harness's four
+
+
+def reduce_inputs(ranks: int, rows: int, seed: int) -> tuple:
+    """Each rank's wire payload for ``rows`` rows of seeded values (the
+    host quantizer's bytes): int8 q [ranks, rows, 512], fp32 scales
+    [ranks, rows]."""
+    import numpy as np
+
+    from torchft_tpu_torch import collectives as C
+
+    qs, ss = zip(*(
+        C.quantize_blockwise(seeded_values(rows * 512, seed * 16 + r))
+        for r in range(ranks)
+    ))
+    return np.stack([q.reshape(rows, 512) for q in qs]), np.stack(ss)
+
+
+def reduce_special_inputs(ranks: int) -> tuple:
+    """Five rows of every rank's payload: a NaN scale in rank 0 (what the
+    wire carries for a block that held a NaN), a row that is zero in every
+    rank (scale 1.0, as the host writes it), subnormal scales, a row at
+    +-127 in every rank, and a row of seeded values."""
+    import numpy as np
+
+    q, s = reduce_inputs(ranks, 5, seed=99)
+    rng = np.random.default_rng(ranks)
+    s[0, 0] = np.nan
+    q[:, 1], s[:, 1] = 0, 1.0
+    s[:, 2] = rng.uniform(1e-41, 1e-40, ranks).astype(np.float32)
+    q[:, 3] = np.where(np.arange(512) % 3 == 0, -127, 127).astype(np.int8)
+    return q, s
+
+
+def reduce_host(q, s, avg: bool) -> tuple:
+    """The host's reduce of int8 payloads q [R, rows, 512], scales [R, rows]:
+    each rank dequantized and added in rank order in fp32, divided by
+    np.float32(R) if ``avg``, then requantized. (int8 [rows * 512], fp32
+    [rows])."""
+    import warnings
+
+    import numpy as np
+
+    from torchft_tpu_torch import collectives as C
+
+    ranks, rows = s.shape
+    n = rows * 512
+    acc = np.zeros(n, np.float32)
+    with warnings.catch_warnings():  # a NaN row warns in numpy
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for r in range(ranks):
+            acc += C.dequantize_blockwise(q[r].reshape(-1), s[r], n)
+        if avg:
+            acc = acc / np.float32(ranks)
+        return C.quantize_blockwise(acc)
+
+
+def reduce_case(name: str, q_host, s_host, avg: bool) -> float:
+    """The reduce kernel on q_host, s_host against its plain version on the
+    card and the host's reduce; raises unless every count is 0. Returns the
+    largest |kernel - plain| over payload levels and finite scales."""
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.ops import quantization as Q
+
+    dev = torch.device("cuda")
+    q = torch.from_numpy(q_host).to(dev)
+    s = torch.from_numpy(s_host).to(dev)
+    q_k, s_k = Q.fused_reduce_int8(q, s, avg)
+    q_p, s_p = Q.reduce_rows_reference(q, s, avg)
+    torch.cuda.synchronize()
+    q_k, s_k = q_k.cpu().numpy().reshape(-1), s_k.cpu().numpy()
+    q_p, s_p = q_p.cpu().numpy().reshape(-1), s_p.cpu().numpy()
+    q_h, s_h = reduce_host(q_host, s_host, avg)
+    counts = {
+        "payload vs plain": mismatches(q_k, q_p),
+        "scales vs plain": mismatches(s_k, s_p),
+        "payload vs numpy": mismatches(q_k, q_h),
+        "scales vs numpy": mismatches(s_k, s_h),
+    }
+    ranks, rows = s_host.shape
+    print(f"reduce ok: {name} R={ranks} rows={rows} avg={avg}: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"reduce {name} R={ranks} avg={avg}: mismatches {counts}")
+    finite = np.isfinite(s_p)
+    return max(
+        float(np.abs(q_k.astype(np.int32) - q_p).max(initial=0)),
+        float(np.abs(s_k[finite] - s_p[finite]).max(initial=0.0)),
+    )
+
+
+def reduce_timing() -> dict:
+    """The reduce kernel at one 32 MiB bucket (TIMED_N values) for each R in
+    TIMED_RANKS, cycling over four inputs (at R = 2 together 67 MB, more
+    than the 50 MB L2): launched straight through its C entry point on
+    preallocated outputs (``ms``), through its wrapper (``wrapper_ms``), and
+    its plain version. Its bound: (R + 1) * (n + 4n/512) bytes over HBM
+    against about 3R + 6 fp32 operations per value (per rank a convert, a
+    multiply and an add; the divide, |x|, max, divide, rint and clamp of the
+    requantize) over the fp32 rate. The R = 2 record is the kernel's; the
+    R = 4 one rides in it under ``ranks_4``."""
+    import torch
+
+    from torchft_tpu_torch.ops import quantization as Q
+
+    dev = torch.device("cuda")
+    n = TIMED_N
+    rows = n // 512
+    lib = Q._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    q_out = torch.empty((rows, 512), dtype=torch.int8, device=dev)
+    s_out = torch.empty(rows, device=dev)
+    rcs = []
+    records = {}
+    for ranks in TIMED_RANKS:
+        inputs = []
+        for i in range(4):
+            q, s = reduce_inputs(ranks, rows, seed=40 + 4 * ranks + i)
+            inputs.append((torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)))
+        raw = [(q.data_ptr(), s.data_ptr(), ranks, rows, 0, q_out.data_ptr(),
+                s_out.data_ptr(), stream) for q, s in inputs]
+        rec = {}
+        for key, fn, args, iters in (
+            ("ms", lambda *a: rcs.append(lib.tft_reduce_rows_int8(*a)), raw, 50),
+            ("wrapper_ms", Q.fused_reduce_int8, inputs, 50),
+            ("plain_ms", Q.reduce_rows_reference, inputs, 10),
+        ):
+            rec[key], rec[key.replace("ms", "host_ms")] = time_cold(fn, args, iters)
+        t_bytes = (ranks + 1) * (n + 4 * rows) / PEAK_BYTES * 1e3
+        t_ops = (3 * ranks + 6) * n / PEAK_FLOPS["float32"] * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"timing reduce R={ranks} n={n}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec.items() if isinstance(v, float)
+        ) + f" ({rec['bound_by']} bound)", flush=True)
+        records[ranks] = rec
+        del inputs, raw
+    if any(rcs):
+        raise AssertionError(f"a timed launch failed: CUDA errors {set(rcs)}")
+    reduce = dict(records[TIMED_RANKS[0]])
+    reduce["ranks"] = TIMED_RANKS[0]
+    reduce["ranks_4"] = records[4]
+    reduce["library_ms"] = None
+    reduce["library_call"] = "none: no single PyTorch call computes it"
+    return reduce
+
+
+def harness_phase() -> dict:
+    """``python -m torchft_tpu_torch.ops.bench_kernels`` on the card in a
+    process of its own (its launch counts start at 0): raises unless it
+    exits 0 with ``ok`` true and every kernel launched. Returns its JSON."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchft_tpu_torch.ops.bench_kernels"],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600,
+    )
+    (OUT / "bench_kernels.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"bench_kernels exited {proc.returncode}: {proc.stdout[-2000:]}"
+            f"{proc.stderr[-4000:]}"
+        )
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    (OUT / "bench_kernels.json").write_text(json.dumps(result, indent=1))
+    idle = [k for k, v in result["launches"].items() if v <= 0]
+    if not result["ok"] or idle or len(result["launches"]) != 9:
+        raise AssertionError(
+            f"bench_kernels: ok {result['ok']}, never launched {idle}, "
+            f"launches {result['launches']}"
+        )
+    print(f"bench_kernels ok in {time.monotonic() - t0:.1f}s: "
+          + json.dumps(result), flush=True)
+    return result
+
+
+def reduce_phase() -> tuple:
+    """Phase 5: (the reduce kernel's record, the harness's JSON)."""
+    t0 = time.monotonic()
+    err = 0.0
+    for ranks in REDUCE_RANKS:
+        for avg in (False, True):
+            for rows in REDUCE_ROWS:
+                err = max(err, reduce_case(
+                    "seeded", *reduce_inputs(ranks, rows, seed=ranks * 10 + rows),
+                    avg,
+                ))
+            err = max(err, reduce_case(
+                "special rows", *reduce_special_inputs(ranks), avg
+            ))
+    record = reduce_timing()
+    record["max_abs_err"] = err
+    harness = harness_phase()
+    print(f"reduce phase ok in {time.monotonic() - t0:.1f}s", flush=True)
+    return record, harness
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 to 8: the fault-tolerant training path
 # ---------------------------------------------------------------------------
 
 PATH_ARGS = [
@@ -954,6 +1169,7 @@ def main() -> int:
     records = kernel_phase()
     records.update(block_phase())
     records.update(quantize_phase())
+    records["reduce"], harness = reduce_phase()
     path = path_phase("path", PATH_ARGS, FLASH_KERNELS)
     quantized = path_phase(
         "quantized path", [*PATH_ARGS, "--quantize"], FLASH_KERNELS + QUANT_KERNELS
@@ -973,14 +1189,19 @@ def main() -> int:
 
     kernels = []
     for name, rec in records.items():
-        drill = (quantized if name in QUANT_KERNELS
-                 else ring if name in BLOCK_KERNELS else path)
-        launches = sum(r["kernel_launches"][name] for r in drill.values())
+        if name == "reduce":
+            # No training step reduces on the card: the harness's launches.
+            launches = harness["launches"][name]
+        else:
+            drill = (quantized if name in QUANT_KERNELS
+                     else ring if name in BLOCK_KERNELS else path)
+            launches = sum(r["kernel_launches"][name] for r in drill.values())
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "torchft_tpu_torch/ops/csrc/"
-            + ("quantization.cu" if name in QUANT_KERNELS else "flash_attention.cu"),
+            + ("quantization.cu" if name in QUANT_KERNELS + ("reduce",)
+               else "flash_attention.cu"),
             "replaces": {
                 "flash_fwd": "torchft_tpu/ops/flash_attention.py:202",
                 "flash_bwd_dq": "torchft_tpu/ops/flash_attention.py:245",
@@ -990,6 +1211,7 @@ def main() -> int:
                 "flash_block_fwd": "torchft_tpu/ops/flash_attention.py:549",
                 "flash_block_bwd_dq": "torchft_tpu/ops/flash_attention.py:587",
                 "flash_block_bwd_dkv": "torchft_tpu/ops/flash_attention.py:620",
+                "reduce": "torchft_tpu/ops/quantization.py:189",
             }[name],
             "launches": launches,
             **rec,

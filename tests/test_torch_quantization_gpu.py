@@ -1,7 +1,7 @@
-"""The port's CUDA quantize and dequantize kernels against their plain
-PyTorch versions and the host quantizer, bit for bit, on the card. Imports
-no JAX, so it runs where JAX is not installed; tests/conftest.py imports
-JAX, so skip it there:
+"""The port's CUDA quantize, dequantize and fused int8 reduce kernels against
+their plain PyTorch versions and the host quantizer, bit for bit, on the
+card. Imports no JAX, so it runs where JAX is not installed;
+tests/conftest.py imports JAX, so skip it there:
 
     python -m pytest --noconftest -m gpu tests/test_torch_quantization_gpu.py
 
@@ -41,3 +41,43 @@ def test_kernels_count_their_launches():
     Q.fused_dequantize(q, s, n, 8)
     assert Q.LAUNCHES["quantize"] == before["quantize"] + 1
     assert Q.LAUNCHES["dequantize"] == before["dequantize"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("avg", [False, True])
+@pytest.mark.parametrize("ranks", [2, 3, 4])
+def test_reduce_kernel_matches_plain_and_host_on_card(ranks, avg):
+    """chip_smoke.py's reduce cases, on row counts that are not multiples
+    of 32 too: 0 differing payload bytes and scale bits against the plain
+    version and the host's reduce."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    for rows in (1, 5, 33, 1000):
+        chip_smoke.reduce_case(
+            "seeded", *chip_smoke.reduce_inputs(ranks, rows, seed=rows), avg
+        )
+    chip_smoke.reduce_case(
+        "special rows", *chip_smoke.reduce_special_inputs(ranks), avg
+    )
+
+
+@pytest.mark.gpu
+def test_reduce_kernel_counts_its_launches_and_takes_views():
+    """One launch per call; a payload that starts off a 16-byte boundary
+    takes the kernel's scalar accesses and the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    from torchft_tpu_torch.ops import quantization as Q
+
+    q_host, s_host = chip_smoke.reduce_inputs(3, 7, seed=5)
+    q = torch.from_numpy(q_host).cuda()
+    s = torch.from_numpy(s_host).cuda()
+    before = Q.LAUNCHES["reduce"]
+    q_out, s_out = Q.fused_reduce_int8(q, s)
+    assert Q.LAUNCHES["reduce"] == before + 1
+    shifted = torch.empty(q.numel() + 1, dtype=torch.int8, device="cuda")
+    view = shifted[1:].view(q.shape)
+    view.copy_(q)
+    q_view, s_view = Q.fused_reduce_int8(view, s)
+    torch.cuda.synchronize()
+    assert torch.equal(q_view, q_out) and torch.equal(s_view, s_out)

@@ -1,9 +1,11 @@
-// Blockwise quantize and dequantize of the replica-axis allreduce payload for
-// Hopper (sm_90a), bound to Python through a plain C interface (ctypes).
+// Blockwise quantize, dequantize and fused int8 reduce of the replica-axis
+// allreduce payload for Hopper (sm_90a), bound to Python through a plain C
+// interface (ctypes).
 //
-// Replaces two Pallas TPU kernels of torchft_tpu/ops/quantization.py:
-//   tft_quantize_rows   <- _quantize_kernel    (via _quantize_rows)
-//   tft_dequantize_rows <- _dequantize_kernel  (via fused_dequantize)
+// Replaces three Pallas TPU kernels of torchft_tpu/ops/quantization.py:
+//   tft_quantize_rows    <- _quantize_kernel    (via _quantize_rows)
+//   tft_dequantize_rows  <- _dequantize_kernel  (via fused_dequantize)
+//   tft_reduce_rows_int8 <- _reduce_kernel      (via fused_reduce_int8)
 //
 // What they compute is the wire format of the host quantizer
 // (torchft_tpu_torch/collectives.py quantize_blockwise / dequantize_blockwise),
@@ -15,7 +17,14 @@
 //     even, a NaN quotient written as 0 (what the host's float->int8 cast
 //     writes). qmax is 127 (int8) or 7 (int4; the caller packs the nibbles).
 //   dequantize: out = (float)q * scale of its row, for the first n values.
-// Both divides are __fdiv_rn and the product __fmul_rn: correctly rounded, so
+//   reduce (int8 only), per row of 512 values of R quantized copies:
+//     acc = sum over r = 0..R-1, in rank order, of (float)q[r] * scale[r],
+//     each product and each sum rounded on its own (__fmul_rn, __fadd_rn,
+//     which nvcc never contracts into an FMA);
+//     acc / R if averaging; then the quantize above with qmax 127. Those are
+//     the host's steps (sum dequantize_blockwise of each rank, divide by
+//     np.float32(R), quantize_blockwise), so the output is the host's bytes.
+// The divides are __fdiv_rn and the products __fmul_rn: correctly rounded, so
 // no reciprocal multiply and no approximate divide can move a value across a
 // rounding boundary. Nothing here may be built with --use_fast_math (the
 // build adds no such flag): it would flush subnormal inputs, which the host
@@ -36,6 +45,17 @@
 //     masked in the kernel, so the caller passes the unpadded array.
 //   - dequantize: 4 values per thread, one 4-byte load of q, one 16-byte
 //     store; the 4 values always share a row (512 % 4 == 0), so one scale.
+//   - reduce: one warp per row, as quantize. Each lane owns 16 contiguous
+//     values: per rank one 16-byte load of 16 int8 (the warp reads the
+//     rank's 512-byte row at once) and one broadcast load of the rank's
+//     scale; the quotient and the row max reuse quantize's helpers, and q
+//     leaves as one 16-byte store per lane. It reads R * (n + 4n/512) bytes
+//     and writes n + 4n/512 for about 3R + 6 operations per value, far below
+//     the ridge: bound by HBM bandwidth too. Where the TPU kernel padded the
+//     row count to its tile of 32, the caller passes exactly `rows` here.
+//     Measured, it reaches about half of that bound, and its time follows
+//     the per-value correctly rounded divide of the requantize more than
+//     its bytes (PERF.md, row 9 of the kernel table).
 //   - Rows of an unaligned array, and the ragged tail, take scalar accesses.
 
 #include <cuda_runtime.h>
@@ -45,7 +65,7 @@
 namespace {
 
 constexpr int kBlock = 512;       // values per scale
-constexpr int kRowsPerCta = 8;    // quantize: one warp per row
+constexpr int kRowsPerCta = 8;    // quantize and reduce: one warp per row
 constexpr int kThreads = 256;
 
 // max that keeps a NaN from either side (fmaxf would drop it).
@@ -59,6 +79,19 @@ __device__ __forceinline__ signed char quantize_one(float x, float scale,
   // Comparisons are false for NaN, so a NaN passes the clamp unchanged.
   r = r > qmax ? qmax : (r < -qmax ? -qmax : r);
   return r != r ? (signed char)0 : (signed char)(int)r;
+}
+
+// The scale of a row whose 512 values the warp holds, 16 a lane: absmax /
+// qmax correctly rounded (NaN if the row holds a NaN), 1.0 where that is 0.
+__device__ __forceinline__ float row_scale(const float (&v)[16], float qmax) {
+  float m = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) m = nan_max(m, fabsf(v[e]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float scale = __fdiv_rn(m, qmax);
+  return scale == 0.0f ? 1.0f : scale;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -87,14 +120,7 @@ quantize_rows_kernel(const float* __restrict__ x, long long n,
       for (int e = 0; e < 4; ++e) v[4 * j + e] = i + e < n ? x[i + e] : 0.0f;
     }
   }
-  float m = 0.0f;
-#pragma unroll
-  for (int e = 0; e < 16; ++e) m = nan_max(m, fabsf(v[e]));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  float scale = __fdiv_rn(m, qmax);
-  if (scale == 0.0f) scale = 1.0f;
+  const float scale = row_scale(v, qmax);
   if (lane == 0) scales[row] = scale;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -131,6 +157,70 @@ dequantize_rows_kernel(const signed char* __restrict__ q,
   }
 }
 
+// The 16 int8 values of one lane, packed four to a 32-bit word (lowest
+// address in the low byte): one 16-byte access where the pointer allows it.
+__device__ __forceinline__ int4 load16(const signed char* p, bool vector) {
+  if (vector) return *reinterpret_cast<const int4*>(p);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    w[e >> 2] |= (unsigned)(unsigned char)p[e] << (8 * (e & 3));
+  return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+}
+
+__device__ __forceinline__ void store16(signed char* p, int4 v, bool vector) {
+  if (vector) {
+    *reinterpret_cast<int4*>(p) = v;
+    return;
+  }
+  const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z,
+                         (unsigned)v.w};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) p[e] = (signed char)(w[e >> 2] >> (8 * (e & 3)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+reduce_rows_int8_kernel(const signed char* __restrict__ q,
+                        const float* __restrict__ scales, long long ranks,
+                        long long rows, bool avg, signed char* __restrict__ q_out,
+                        float* __restrict__ s_out) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * kRowsPerCta + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const long long col = (long long)lane * 16;
+  const bool vector = ((reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(q_out)) & 15) == 0;
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+#pragma unroll 4
+  for (long long r = 0; r < ranks; ++r) {
+    const int4 b = load16(q + (r * rows + row) * kBlock + col, vector);
+    const unsigned w[4] = {(unsigned)b.x, (unsigned)b.y, (unsigned)b.z,
+                           (unsigned)b.w};
+    const float s = scales[r * rows + row];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float x = (float)(signed char)(w[e >> 2] >> (8 * (e & 3)));
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(x, s));
+    }
+  }
+  if (avg) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = __fdiv_rn(acc[e], (float)ranks);
+  }
+  const float scale = row_scale(acc, 127.0f);
+  if (lane == 0) s_out[row] = scale;
+  unsigned c[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    c[e >> 2] |= (unsigned)(unsigned char)quantize_one(acc[e], scale, 127.0f)
+                 << (8 * (e & 3));
+  store16(q_out + row * kBlock + col,
+          make_int4((int)c[0], (int)c[1], (int)c[2], (int)c[3]), vector);
+}
+
 }  // namespace
 
 extern "C" {
@@ -156,6 +246,21 @@ int tft_dequantize_rows(const void* q, const void* scales, long long n,
   dequantize_rows_kernel<<<(unsigned)grid, kThreads, 0,
                            (cudaStream_t)stream>>>(
       (const signed char*)q, (const float*)scales, n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// q: int8 [ranks, rows, 512]; scales: fp32 [ranks, rows]; q_out: int8
+// [rows, 512]; s_out: fp32 [rows]. avg != 0 divides the sum by ranks.
+// Returns the launch's CUDA error code (0 on success).
+int tft_reduce_rows_int8(const void* q, const void* scales, long long ranks,
+                         long long rows, int avg, void* q_out, void* s_out,
+                         void* stream) {
+  if (rows == 0) return 0;
+  const long long grid = (rows + kRowsPerCta - 1) / kRowsPerCta;
+  reduce_rows_int8_kernel<<<(unsigned)grid, kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const signed char*)q, (const float*)scales, ranks, rows, avg != 0,
+      (signed char*)q_out, (float*)s_out);
   return (int)cudaGetLastError();
 }
 

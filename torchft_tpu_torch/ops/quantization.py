@@ -1,11 +1,13 @@
 """Blockwise int8/int4 quantization of the replica-axis allreduce payload:
-two hand-written CUDA kernels for Hopper.
+three hand-written CUDA kernels for Hopper.
 
 The port of ``torchft_tpu/ops/quantization.py``'s Pallas TPU kernels
-``_quantize_kernel`` and ``_dequantize_kernel`` (its fused reduce has no
-production caller and is not ported). The kernels live in
-``csrc/quantization.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
-bound with ``ctypes``); the source says what bounds them on the H100.
+``_quantize_kernel``, ``_dequantize_kernel`` and ``_reduce_kernel``. The
+fused int8 reduce has no production caller (the wire pipeline reduces on
+the host, as the JAX package's does); the kernel harness
+(``python -m torchft_tpu_torch.ops.bench_kernels``) runs it. The kernels live
+in ``csrc/quantization.cu`` (built with ``nvcc`` for ``sm_90a`` at first
+use, bound with ``ctypes``); the source says what bounds them on the H100.
 
 The layout is the wire format of the host quantizer
 (``collectives.quantize_blockwise``), bit for bit: one fp32 scale per 512
@@ -16,9 +18,10 @@ package pads the row count to its TPU tile of 32; the port does not. The
 nibble packing is plain torch bitwise ops outside the kernel, as the JAX
 package packs outside Pallas.
 
-Each kernel has a wrapper (``fused_quantize``, ``fused_dequantize``) and a
-plain PyTorch version of the same math (``quantize_rows_reference``,
-``dequantize_rows_reference``). A wrapper takes the plain version only for
+Each kernel has a wrapper (``fused_quantize``, ``fused_dequantize``,
+``fused_reduce_int8``) and a plain PyTorch version of the same math
+(``quantize_rows_reference``, ``dequantize_rows_reference``,
+``reduce_rows_reference``). A wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 ``LAUNCHES`` counts kernel launches per kernel.
 
@@ -47,11 +50,13 @@ __all__ = [
     "dequantize_rows_reference",
     "fused_dequantize",
     "fused_quantize",
+    "fused_reduce_int8",
     "host_to_device",
     "pull_transfer_chunks",
     "quantize_for_transfer",
     "quantize_for_transfer_async",
     "quantize_rows_reference",
+    "reduce_rows_reference",
 ]
 
 BLOCK = 512  # values per scale, as collectives.BLOCK
@@ -62,7 +67,7 @@ _SOURCE = "quantization.cu"
 _TRANSFER_CHUNK = 16 * 1024 * 1024
 
 # Kernel launches since the last reset, by kernel name.
-LAUNCHES: Dict[str, int] = {"quantize": 0, "dequantize": 0}
+LAUNCHES: Dict[str, int] = {"quantize": 0, "dequantize": 0, "reduce": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +100,23 @@ def dequantize_rows_reference(
     return q2d.to(torch.float32) * scales[:, None]
 
 
+def reduce_rows_reference(
+    q: torch.Tensor, scales: torch.Tensor, avg: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 q [R, rows, 512] x fp32 scales [R, rows] -> (int8 [rows, 512],
+    fp32 [rows]): the reduce kernel's math. Each rank's dequantized rows are
+    added in rank order, every product and sum its own tensor op (one
+    rounding each, as the host's ``acc += dequantize_blockwise(...)``); the
+    divide by R is tensor by tensor; then the quantize kernel's math."""
+    ranks = q.shape[0]
+    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+    for r in range(ranks):
+        acc = acc + dequantize_rows_reference(q[r], scales[r])
+    if avg:
+        acc = acc / torch.full_like(acc, ranks)
+    return quantize_rows_reference(acc, 127.0)
+
+
 def _pack_nibbles(q: torch.Tensor) -> torch.Tensor:
     """int8 [rows, 512] in [-7, 7] -> int8 [rows, 256], the layout of
     ``collectives.pack_nibbles`` (even flat index -> low nibble)."""
@@ -125,8 +147,10 @@ def _library() -> ctypes.CDLL:
         P, L, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
         lib.tft_quantize_rows.argtypes = [P, L, P, P, F, P]
         lib.tft_dequantize_rows.argtypes = [P, P, L, P, P]
+        lib.tft_reduce_rows_int8.argtypes = [P, P, L, L, ctypes.c_int, P, P, P]
         lib.tft_quantize_rows.restype = ctypes.c_int
         lib.tft_dequantize_rows.restype = ctypes.c_int
+        lib.tft_reduce_rows_int8.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -232,6 +256,42 @@ def fused_dequantize(
     out = torch.empty(n, dtype=torch.float32, device=q.device)
     _dequantize_into(q.reshape(-1, BLOCK), scales.reshape(-1), out)
     return out
+
+
+def fused_reduce_int8(
+    q: torch.Tensor, scales: torch.Tensor, avg: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sums R int8-quantized copies of the same rows in fp32, in rank order,
+    divides by R if ``avg``, and requantizes: q [R, rows, 512] int8, scales
+    [R, rows] fp32 -> (q_out [rows, 512] int8, scales_out [rows] fp32), the
+    host's bytes for the same sum. The reduce kernel (replaces
+    ``_reduce_kernel``) on CUDA tensors; unlike the JAX function it neither
+    pads the rows nor returns padded rows."""
+    if q.dim() != 3 or q.shape[2] != BLOCK or tuple(scales.shape) != tuple(q.shape[:2]):
+        raise ValueError(
+            f"fused_reduce_int8: want q [R, rows, {BLOCK}] and scales [R, rows], "
+            f"got {tuple(q.shape)} and {tuple(scales.shape)}"
+        )
+    if q.shape[0] == 0:
+        raise ValueError("fused_reduce_int8: no ranks to reduce")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(
+            f"fused_reduce_int8: want int8 q and float32 scales, got {q.dtype} "
+            f"and {scales.dtype}"
+        )
+    if q.device.type == "cpu" and scales.device.type == "cpu":
+        return reduce_rows_reference(q, scales, avg)
+    _check_cuda("reduce", (q, torch.int8), (scales, torch.float32))
+    ranks, rows = q.shape[:2]
+    q_out = torch.empty((rows, BLOCK), dtype=torch.int8, device=q.device)
+    s_out = torch.empty((rows,), dtype=torch.float32, device=q.device)
+    if rows:
+        _launch(
+            "reduce", _library().tft_reduce_rows_int8, q.device,
+            q.data_ptr(), scales.data_ptr(), ranks, rows, int(avg),
+            q_out.data_ptr(), s_out.data_ptr(),
+        )
+    return q_out, s_out
 
 
 # ---------------------------------------------------------------------------

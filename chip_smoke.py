@@ -6,7 +6,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc, one
-   nvcc per source, all started together.
+   nvcc per source, all started together; then ``cuobjdump -sass`` of the
+   flash library must show HGMMA (wgmma) instructions in the bf16 forward
+   and dk/dv bodies at every head_dim (counts and ptxas' registers and
+   spills in ``sass_check.json``).
 2. Flash kernels: each kernel against its plain PyTorch version on the card,
    element by element (``TOL``), at the training path's shapes
    (llama_small: B=8, S=1024, Hq=12, Hkv=4, D=64, bf16) and at further
@@ -53,7 +56,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    parameters must differ from the unquantized drill's.
 8. Ring path: the same drill with ``--attn ring`` (sp=1 on one card: one
    block per layer); the three block kernels must launch in both groups,
-   the whole-sequence flash kernels never.
+   the whole-sequence flash kernels never, and it must end in the flash drill's
+   parameters (at sp=1 the block kernels compute the whole-sequence
+   kernels' bits: one body serves both).
 9. The ``{"kernels": [...]}`` line, the card line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
@@ -119,6 +124,90 @@ def build_kernels() -> None:
         if ptxas.exists():
             (OUT / ptxas.name).write_text(ptxas.read_text())
         print(f"build: {source} {secs:.1f}s", flush=True)
+
+
+# The bf16 bodies that must run on the tensor cores, built at every head_dim.
+TENSOR_CORE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def ptxas_report(text: str) -> dict:
+    """{mangled name: {registers, stack, spill_stores, spill_loads}} from
+    ``nvcc -Xptxas -v`` output, and ptxas' warnings and performance notices
+    (a wgmma it had to serialize)."""
+    import re
+
+    report, warnings, name = {}, [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m[1])
+        if "warning" in line.lower() or "Performance Loss" in line:
+            warnings.append(line.strip())
+    return {"functions": report, "warnings": warnings}
+
+
+def sass_check() -> dict:
+    """``cuobjdump -sass`` of the built flash library: raises unless the
+    bf16 forward and dk/dv bodies hold HGMMA (wgmma) instructions at every
+    head_dim. Writes each kernel instantiation's HGMMA and HMMA counts with
+    ptxas' registers, stack and spill bytes to ``sass_check.json`` and
+    prints them."""
+    import re
+
+    from torchft_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.library_path("flash_attention.cu")
+    cuobjdump = Path(_cuda_build._nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name and "HGMMA" in line:
+            counts[name]["HGMMA"] += 1
+        elif name and "HMMA" in line:
+            counts[name]["HMMA"] += 1
+    ptxas = ptxas_report(
+        (_cuda_build.BUILD_DIR / "flash_attention.ptxas.txt").read_text()
+    )
+    table = {}
+    for mangled, c in counts.items():
+        m = re.search(r"(flash_[a-z_]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)EE", mangled)
+        if not m:
+            continue
+        dtype = {"f": "fp32", None: "bf16"}.get(m[2], "bf16")
+        key = f"{m[1]}<{dtype}, D={m[3]}>"
+        table[key] = {**c, **ptxas["functions"].get(mangled, {})}
+    missing = [
+        f"{k}<bf16, D={d}>" for k in TENSOR_CORE_KERNELS for d in HEAD_DIMS
+        if table.get(f"{k}<bf16, D={d}>", {}).get("HGMMA", 0) <= 0
+    ]
+    result = {"kernels": table, "ptxas_warnings": ptxas["warnings"]}
+    (OUT / "sass_check.json").write_text(json.dumps(result, indent=1))
+    for key, rec in sorted(table.items()):
+        print(f"sass: {key}: " + ", ".join(f"{k} {v}" for k, v in rec.items()),
+              flush=True)
+    for w in ptxas["warnings"]:
+        print(f"ptxas: {w}", flush=True)
+    if missing:
+        raise AssertionError(f"no HGMMA in the SASS of {missing}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1165,6 +1254,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     build_kernels()
+    sass_check()
 
     records = kernel_phase()
     records.update(block_phase())
@@ -1180,6 +1270,13 @@ def main() -> int:
             "the gradients were not quantized"
         )
     ring = path_phase("ring path", RING_ARGS, BLOCK_KERNELS, absent=FLASH_KERNELS)
+    if ring[0]["param_sha256"] != path[0]["param_sha256"]:
+        raise AssertionError(
+            "the ring drill (sp=1) ended in other parameters than the flash "
+            f"drill ({ring[0]['param_sha256']} vs {path[0]['param_sha256']}): "
+            "the block and whole-sequence entry points no longer compute "
+            "the same bits"
+        )
     for g in (0, 1):
         a, b, c = path[g], quantized[g], ring[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "

@@ -64,3 +64,40 @@ def test_ring_sp4_on_repeated_card():
     for name in chip_smoke.BLOCK_KERNELS:
         assert rec["launches"][name] == 16, rec["launches"]
     assert all(r["share"] <= 1.0 for r in rec["outputs"].values()), rec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", chip_smoke.BLOCK_OFFSETS, ids=str)
+@pytest.mark.parametrize("D", (16, 32, 64, 128))
+def test_bf16_block_head_dims_on_card(D, offsets):
+    """The bf16 block kernels at every head_dim, at chip_smoke.py's offsets
+    on Sq = Skv = 1024, each element within its limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q_per_kv = {16: 1, 32: 4, 64: 3, 128: 4}[D]
+    chip_smoke.check_block_case(
+        1, 1024, 1024, 2 * q_per_kv, 2, D, torch.bfloat16, *offsets,
+        timed=False, seed=D,
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "Sq, Skv, q_off, k_off",
+    [(63, 65, 0, 0), (200, 328, 300, 100), (1000, 200, 0, 64),
+     (65, 1000, 960, 0)],
+    ids=str,
+)
+@pytest.mark.parametrize("q_per_kv", (1, 3, 4))
+@pytest.mark.parametrize("D", (16, 32, 64, 128))
+def test_bf16_block_ragged_on_card(D, q_per_kv, Sq, Skv, q_off, k_off):
+    """Sq != Skv, lengths off the tile and offsets off the tile, in bf16 at
+    every head_dim and GQA ratio (rows that see no key: out 0, lse -1e30)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.check_block_case(
+        2, Sq, Skv, 2 * q_per_kv, 2, D, torch.bfloat16, q_off, k_off,
+        timed=False, seed=Sq + Skv + D + q_per_kv,
+    )

@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
    the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc, one
    nvcc per source, all started together; then ``cuobjdump -sass`` of the
-   flash library must show HGMMA (wgmma) instructions in the bf16 forward
-   and dk/dv bodies at every head_dim (counts and ptxas' registers and
+   flash library must show HGMMA (wgmma) instructions in the bf16 forward,
+   dq and dk/dv bodies at every head_dim (counts and ptxas' registers and
    spills in ``sass_check.json``).
 2. Flash kernels: each kernel against its plain PyTorch version on the card,
    element by element (``TOL``), at the training path's shapes
@@ -127,7 +127,10 @@ def build_kernels() -> None:
 
 
 # The bf16 bodies that must run on the tensor cores, built at every head_dim.
-TENSOR_CORE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+TENSOR_CORE_KERNELS = (
+    "flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+    "flash_bwd_dkv_wgmma_kernel",
+)
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -159,10 +162,10 @@ def ptxas_report(text: str) -> dict:
 
 def sass_check() -> dict:
     """``cuobjdump -sass`` of the built flash library: raises unless the
-    bf16 forward and dk/dv bodies hold HGMMA (wgmma) instructions at every
-    head_dim. Writes each kernel instantiation's HGMMA and HMMA counts with
-    ptxas' registers, stack and spill bytes to ``sass_check.json`` and
-    prints them."""
+    bf16 forward, dq and dk/dv bodies hold HGMMA (wgmma) instructions at
+    every head_dim. Writes each kernel instantiation's HGMMA and HMMA
+    counts with ptxas' registers, stack and spill bytes to
+    ``sass_check.json`` and prints them."""
     import re
 
     from torchft_tpu_torch.ops import _cuda_build
@@ -188,11 +191,12 @@ def sass_check() -> dict:
     )
     table = {}
     for mangled, c in counts.items():
-        m = re.search(r"(flash_[a-z_]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)EE", mangled)
+        m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)EE", mangled)
         if not m:
             continue
-        dtype = {"f": "fp32", None: "bf16"}.get(m[2], "bf16")
-        key = f"{m[1]}<{dtype}, D={m[3]}>"
+        # The tensor-core bodies take bf16 only, the FMA bodies fp32 only.
+        dtype = "bf16" if "_wgmma_" in m[1] else "fp32"
+        key = f"{m[1]}<{dtype}, D={m[2]}>"
         table[key] = {**c, **ptxas["functions"].get(mangled, {})}
     missing = [
         f"{k}<bf16, D={d}>" for k in TENSOR_CORE_KERNELS for d in HEAD_DIMS

@@ -56,7 +56,7 @@ def test_kernels_match_plain_on_card():
 @pytest.mark.parametrize("S", (1, 63, 65, 200, 1000))
 @pytest.mark.parametrize("D", (16, 32, 64, 128))
 def test_bf16_tile_edges_on_card(D, S, q_per_kv, causal):
-    """The bf16 kernels (the forward and dk/dv on the tensor cores) at every
+    """The bf16 kernels (all three on the tensor cores) at every
     head_dim, lengths off the 64-row tile, GQA ratios 1, 3 and 4, causal and
     not: every element of out, lse, dq, dk and dv within chip_smoke.py's
     limit (``TOL`` through ``flash_attention_term_sums``)."""
@@ -70,6 +70,39 @@ def test_bf16_tile_edges_on_card(D, S, q_per_kv, causal):
         2, S, 2 * q_per_kv, 2, D, torch.bfloat16, causal, timed=False,
         seed=S * 10 + D + q_per_kv,
     )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", (64, 128))
+def test_bf16_dq_is_deterministic_on_card(D):
+    """dq sums each q row over its kv tiles in a fixed order, with no
+    atomics, so two calls on the same bf16 inputs give the same bits: the
+    whole-sequence kernel (causal) and the block kernel at offsets
+    (1024, 512) with an lse cotangent, at llama_small's heads cut to B=2.
+    The drills' bitwise parameter checks rest on this."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    g = torch.Generator(device="cuda").manual_seed(D)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    B, S, Hq, Hkv = 2, 1024, 12, 4
+    q, k, v, dout = mk(B, S, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D), mk(B, S, Hq, D)
+    dlse = torch.randn(B, Hq, S, generator=g, device="cuda")
+    out, lse = T.flash_fwd(q, k, v)
+    delta = T._delta(dout, out)
+    out_b, lse_b = T.flash_block_fwd(q, k, v, 1024, 512)
+    delta_b = T._delta(dout, out_b)
+    for name, call in (
+        ("flash_bwd_dq", lambda: T.flash_bwd_dq(q, k, v, dout, lse, delta)),
+        ("flash_block_bwd_dq", lambda: T.flash_block_bwd_dq(
+            q, k, v, dout, lse_b, delta_b, dlse, 1024, 512)),
+    ):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.isfinite(first.float()).all(), name
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16)), (
+            f"{name} at D={D}: two calls on the same inputs differ in "
+            f"{int((first.view(torch.int16) != second.view(torch.int16)).sum())} elements"
+        )
 
 
 def _check_one_key(B, Hq, Hkv, D, causal, seed):

@@ -37,12 +37,12 @@
 // training shapes (S = 1024, D = 64) each (q tile, kv tile) pair does
 // 2 * 64 * 64 * D flops per product on 64 * D inputs, far above the card's
 // ~295 flop/byte ridge, so every body is bound by arithmetic, not by HBM:
-// the forward and dk/dv at the bf16 tensor-core peak (989 TFLOP/s), the FMA
-// bodies at the fp32 CUDA-core peak (67 TFLOP/s).
+// the bf16 bodies at the tensor-core peak (989 TFLOP/s), the fp32 FMA
+// bodies at the CUDA-core peak (67 TFLOP/s).
 //
-// bf16 forward and dk/dv: the tensor cores (flash_fwd_wgmma_kernel,
-// flash_bwd_dkv_wgmma_kernel).
-//   - Both products of each tile pair are wgmma.mma_async m64nNk16 (bf16 in,
+// bf16 forward, dq and dk/dv: the tensor cores (flash_fwd_wgmma_kernel,
+// flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel).
+//   - Every product of each tile pair is wgmma.mma_async m64nNk16 (bf16 in,
 //     fp32 accumulate), issued by one warpgroup of 128 threads that owns the
 //     block's 64 output rows. 64 q rows per forward block, not 128: the skip
 //     predicate and the causal loops stay at the 64-row tiles of the FMA
@@ -55,31 +55,39 @@
 //     descriptor names (TileLayout: 128-byte swizzle at D = 64, two 128-byte
 //     atoms along D at D = 128, the 64- and 32-byte modes at D = 32 and 16).
 //     One copy of each tile serves both products: K-major where D is
-//     contracted (Q.K^T; K.Q^T and V.dO^T in dk/dv), MN-major where the rows
-//     are (P.V; P^T.dO and dS^T.Q), so nothing is stored transposed.
-//   - The second product takes its A operand from registers: an fp32
+//     contracted (Q.K^T and dO.V^T; K.Q^T and V.dO^T in dk/dv), MN-major
+//     where the rows are (P.V and dS.K; P^T.dO and dS^T.Q), so nothing is
+//     stored transposed.
+//   - The last product(s) take the A operand from registers: an fp32
 //     accumulator fragment of a 64 x 64 product, rounded to packed bf16
-//     pairs (the TPU kernel's p.astype(v.dtype)), is already the A fragment
-//     of the next wgmma. In dk/dv the block stays on one 64-row kv tile, so
-//     S^T and dP^T come out kv-row-major and P^T and dS^T feed dV and dK
-//     directly.
+//     pairs (the TPU kernel's p.astype(v.dtype), ds.astype(k.dtype)), is
+//     already the A fragment of the next wgmma. dq forms dS element by
+//     element in the S accumulator's layout, from S and dP issued as one
+//     batch. In dk/dv the block stays on one 64-row kv tile, so S^T and dP^T
+//     come out kv-row-major and P^T and dS^T feed dV and dK directly.
 //   - cp.async 16-byte copies (zero-filled past S) write each tile's swizzled
 //     addresses themselves, double-buffered: the next K/V tile (the next
 //     Q/dO tile and its lse/delta/dlse in dk/dv) is in flight while the
 //     tensor cores work on this one. No TMA: a tensor map per call would
 //     cost a host encode and a link to libcuda for tiles this small.
+//   - dq stays a kernel of its own, one block per 64 q rows summing over its
+//     kv tiles in order; it is not folded into dk/dv with atomicAdd, which
+//     would make the sums' order, and so the bits, vary from run to run.
 //   - Shared memory a block: forward 5 tiles + 1 KB alignment (11,264,
-//     21,504, 41,984 and 82,944 bytes at D = 16, 32, 64, 128); dk/dv 6 tiles
-//     + 1.5 KB of rows + 1 KB (14,848, 27,136, 51,712, 100,864). Registers
-//     a thread from ptxas (CUDA 12.8, sm_90a): forward 84, 94, 128, 165;
-//     dk/dv 113, 127, 167, 249; no stack and no spills at any D. The build
-//     keeps the report (flash_attention.ptxas.txt); chip_smoke.py prints
-//     it with the SASS's HGMMA counts.
+//     21,504, 41,984 and 82,944 bytes at D = 16, 32, 64, 128); dq 6 tiles +
+//     1 KB (13,312, 25,600, 50,176, 99,328), the rows' lse, delta and dlse
+//     in registers; dk/dv 6 tiles + 1.5 KB of rows + 1 KB (14,848, 27,136,
+//     51,712, 100,864). Registers a thread from ptxas (CUDA 12.8, sm_90a):
+//     forward 84, 94, 128, 165; dq 104, 118, 141, 189; dk/dv 113, 127, 167,
+//     249; no stack and no spills at any D. The build keeps the report
+//     (flash_attention.ptxas.txt); chip_smoke.py prints it with the SASS's
+//     HGMMA counts.
 //
-// fp32, and dq in both dtypes: the FMA bodies (flash_fwd_kernel,
-// flash_bwd_dq_kernel, flash_bwd_dkv_kernel). The tensor cores' fp32 inputs
-// are TF32, which misses the fp32 limit, so fp32 stays on the CUDA cores by
-// design; the dq body has not been redesigned yet.
+// fp32: the FMA bodies (flash_fwd_kernel, flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel), in all three kernels by design, not as a fallback.
+// The tensor cores take fp32 only as TF32 (10 mantissa bits), which cannot
+// meet the fp32 limit of 1e-5 of each element's terms, so fp32 stays on the
+// CUDA cores. No bf16 instantiation of these bodies is built.
 //   - One thread block of 256 threads per (q tile of 64 rows, head, batch)
 //     (per kv tile of 64 rows for dk/dv). Tiles are staged in shared memory
 //     as fp32; operands of the S-shaped products are stored transposed
@@ -129,42 +137,10 @@ constexpr int kTile = 64;      // rows of a q tile and of a kv tile
 constexpr int kThreads = 256;  // 16 x 16 threads, each owning 4 x 4 scores
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ void load4(const float* p, float* o) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                               float* o) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float2 a = __bfloat1622float2(h[0]);
-    float2 b = __bfloat1622float2(h[1]);
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  }
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-  // Round to the input dtype and back (round to nearest even), as the TPU
-  // kernel's astype(bf16) before a product.
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
 
 struct Strides {
   long long b, s, h;  // in elements; the last (D) dim is contiguous
@@ -174,8 +150,8 @@ struct Strides {
 // dst[d * 64 + r]. Consecutive threads take consecutive rows (four values of
 // d each), so the shared-memory writes do not conflict. Rows at or past S
 // are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_t(float* dst, const T* base,
+template <int D>
+__device__ __forceinline__ void load_tile_t(float* dst, const float* base,
                                             long long row_stride, int row0,
                                             int S) {
   constexpr int kChunks = D / 4;
@@ -184,7 +160,7 @@ __device__ __forceinline__ void load_tile_t(float* dst, const T* base,
     const int c = e / kTile;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
     if (row0 + r < S) {
-      Elem<T>::load4(base + (long long)(row0 + r) * row_stride + c * 4, v);
+      load4(base + (long long)(row0 + r) * row_stride + c * 4, v);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[(c * 4 + i) * kTile + r] = v[i];
@@ -192,8 +168,8 @@ __device__ __forceinline__ void load_tile_t(float* dst, const T* base,
 }
 
 // Tile of 64 rows x D into shared memory, row-major: dst[r * D + d].
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long row_stride, int row0,
                                           int S) {
   constexpr int kChunks = D / 4;
@@ -202,7 +178,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base,
     const int c = e % kChunks;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
     if (row0 + r < S) {
-      Elem<T>::load4(base + (long long)(row0 + r) * row_stride + c * 4, v);
+      load4(base + (long long)(row0 + r) * row_stride + c * 4, v);
     }
     *reinterpret_cast<float4*>(dst + r * D + c * 4) =
         make_float4(v[0], v[1], v[2], v[3]);
@@ -257,16 +233,13 @@ __device__ __forceinline__ void mm_pv(float (&acc)[4][D / 16], const float* p,
 }
 
 // Writes x[i][j] (rows r + i, columns c + j of a 64x64 tile) transposed,
-// dst[(c + j) * 64 + r + i], rounded to the input dtype, one 16-byte store
-// per column.
-template <typename T>
+// dst[(c + j) * 64 + r + i], one 16-byte store per column.
 __device__ __forceinline__ void store_t(float* dst, const float (&x)[4][4],
                                         int r, int c) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     *reinterpret_cast<float4*>(dst + (c + j) * kTile + r) =
-        make_float4(Elem<T>::round(x[0][j]), Elem<T>::round(x[1][j]),
-                    Elem<T>::round(x[2][j]), Elem<T>::round(x[3][j]));
+        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
 }
 
 // Reduction over the 16 threads that share a row group (lanes differing in
@@ -322,10 +295,10 @@ __device__ __forceinline__ int q_tiles_begin(const Mask& m, int k0) {
 // Forward. Grid (q tiles, Hq, B). Shared: Qt [D][64], Kt [D][64],
 // V [64][D], Pt [64][64] (P transposed: kv index major).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, Mask m, int Hq, int q_per_kv,
                  Strides qs, Strides ks, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -344,10 +317,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * ks.b + hk * ks.h;
-  load_tile_t<T, D>(Qt, qb, qs.s, q0, m.Sq);
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * ks.b + hk * ks.h;
+  load_tile_t<D>(Qt, qb, qs.s, q0, m.Sq);
 
   float m_i[4], l_i[4], o[4][DC];
 #pragma unroll
@@ -362,8 +335,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < kv_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // previous tile's readers are done
-    load_tile_t<T, D>(Kt, kb, ks.s, k0, m.Skv);
-    load_tile<T, D>(Vs, vb, ks.s, k0, m.Skv);
+    load_tile_t<D>(Kt, kb, ks.s, k0, m.Skv);
+    load_tile<D>(Vs, vb, ks.s, k0, m.Skv);
     __syncthreads();
 
     float s[4][4] = {};
@@ -398,14 +371,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jd = 0; jd < DC; ++jd) o[i][jd] *= alpha;
     }
-    store_t<T>(Pt, s, tr * 4, tc * 4);
+    store_t(Pt, s, tr * 4, tc * 4);
     __syncthreads();
     mm_pv<D>(o, Pt, tr * 4, Vs, tc * DC);
   }
 
   // A row with no visited tile keeps l = 0 and m = -1e30: out 0 and
   // lse = -1e30 + log(1e-30), which is -1e30 in fp32.
-  T* ob = out + b * qs.b + h * qs.h;
+  float* ob = out + b * qs.b + h * qs.h;
   float* lb = lse + ((long long)b * Hq + h) * m.Sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -415,8 +388,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / denom;
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd)
-      Elem<T>::store(ob + (long long)row * qs.s + tc * DC + jd,
-                     o[i][jd] * inv);
+      ob[(long long)row * qs.s + tc * DC + jd] = o[i][jd] * inv;
     if (tc == 0) lb[row] = m_i[i] + __logf(denom);
   }
 }
@@ -425,13 +397,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward dq. Grid (q tiles, Hq, B). Shared: Qt, dOt, Kt, Vt [D][64],
 // K [64][D], dSt [64][64]. dlse is null for the whole-sequence kernel.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const float* __restrict__ dlse, T* __restrict__ dq,
+                    const float* __restrict__ dlse, float* __restrict__ dq,
                     Mask m, int Hq, int q_per_kv, Strides qs, Strides ks,
                     float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -451,10 +425,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
 
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * ks.b + hk * ks.h;
-  load_tile_t<T, D>(Qt, q + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
-  load_tile_t<T, D>(dOt, dout + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * ks.b + hk * ks.h;
+  load_tile_t<D>(Qt, q + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
+  load_tile_t<D>(dOt, dout + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
 
   const long long row0 = ((long long)b * Hq + h) * m.Sq;
   float lse_i[4], delta_i[4], dlse_i[4], acc[4][DC];
@@ -473,9 +447,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < kv_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile_t<T, D>(Kt, kb, ks.s, k0, m.Skv);
-    load_tile_t<T, D>(Vt, vb, ks.s, k0, m.Skv);
-    load_tile<T, D>(Ks, kb, ks.s, k0, m.Skv);
+    load_tile_t<D>(Kt, kb, ks.s, k0, m.Skv);
+    load_tile_t<D>(Vt, vb, ks.s, k0, m.Skv);
+    load_tile<D>(Ks, kb, ks.s, k0, m.Skv);
     __syncthreads();
 
     float s[4][4] = {};
@@ -495,20 +469,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][j] = p * dsum;                      // dS
       }
     }
-    store_t<T>(dSt, s, tr * 4, tc * 4);
+    store_t(dSt, s, tr * 4, tc * 4);
     __syncthreads();
     mm_pv<D>(acc, dSt, tr * 4, Ks, tc * DC);
   }
 
-  T* qb = dq + b * qs.b + h * qs.h;
+  float* qb = dq + b * qs.b + h * qs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
     if (row >= m.Sq) continue;
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd)
-      Elem<T>::store(qb + (long long)row * qs.s + tc * DC + jd,
-                     acc[i][jd] * scale);
+      qb[(long long)row * qs.s + tc * DC + jd] = acc[i][jd] * scale;
   }
 }
 
@@ -516,14 +489,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward dk/dv. Grid (kv tiles, Hkv, B). Shared: Kt, Vt, Qt, dOt [D][64],
 // Q, dO [64][D], P, dS [64 q][64 kv], lse, delta and dlse of the q tile [64].
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const float* __restrict__ dlse, T* __restrict__ dk,
-                     T* __restrict__ dv, Mask m, int Hq, int q_per_kv,
+                     const float* __restrict__ dlse, float* __restrict__ dk,
+                     float* __restrict__ dv, Mask m, int Hq, int q_per_kv,
                      Strides qs, Strides ks, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;
@@ -546,8 +521,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
 
-  load_tile_t<T, D>(Kt, k + b * ks.b + hk * ks.h, ks.s, k0, m.Skv);
-  load_tile_t<T, D>(Vt, v + b * ks.b + hk * ks.h, ks.s, k0, m.Skv);
+  load_tile_t<D>(Kt, k + b * ks.b + hk * ks.h, ks.s, k0, m.Skv);
+  load_tile_t<D>(Vt, v + b * ks.b + hk * ks.h, ks.s, k0, m.Skv);
 
   float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
@@ -562,16 +537,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = q_tiles_begin(m, k0);
   for (int g = 0; g < q_per_kv; ++g) {
     const int h = hk * q_per_kv + g;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* ob = dout + b * qs.b + h * qs.h;
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* ob = dout + b * qs.b + h * qs.h;
     const long long row0 = ((long long)b * Hq + h) * m.Sq;
     for (int qt = q_begin; qt < n_q; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();
-      load_tile_t<T, D>(Qt, qb, qs.s, q0, m.Sq);
-      load_tile_t<T, D>(dOt, ob, qs.s, q0, m.Sq);
-      load_tile<T, D>(Qs, qb, qs.s, q0, m.Sq);
-      load_tile<T, D>(dOs, ob, qs.s, q0, m.Sq);
+      load_tile_t<D>(Qt, qb, qs.s, q0, m.Sq);
+      load_tile_t<D>(dOt, ob, qs.s, q0, m.Sq);
+      load_tile<D>(Qs, qb, qs.s, q0, m.Sq);
+      load_tile<D>(dOs, ob, qs.s, q0, m.Sq);
       if (threadIdx.x < kTile) {
         const int row = q0 + threadIdx.x;
         const bool in = row < m.Sq;
@@ -604,32 +579,30 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           st[i][j] = p;          // P^T
         }
       }
-      store_t<T>(Ps, st, tr * 4, tc * 4);
-      store_t<T>(dSs, dpt, tr * 4, tc * 4);
+      store_t(Ps, st, tr * 4, tc * 4);
+      store_t(dSs, dpt, tr * 4, tc * 4);
       __syncthreads();
       mm_pv<D>(dv_acc, Ps, tr * 4, dOs, tc * DC);
       mm_pv<D>(dk_acc, dSs, tr * 4, Qs, tc * DC);
     }
   }
 
-  T* kb = dk + b * ks.b + hk * ks.h;
-  T* vb = dv + b * ks.b + hk * ks.h;
+  float* kb = dk + b * ks.b + hk * ks.h;
+  float* vb = dv + b * ks.b + hk * ks.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + tr * 4 + i;
     if (row >= m.Skv) continue;
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd) {
-      Elem<T>::store(kb + (long long)row * ks.s + tc * DC + jd,
-                     dk_acc[i][jd] * scale);
-      Elem<T>::store(vb + (long long)row * ks.s + tc * DC + jd,
-                     dv_acc[i][jd]);
+      kb[(long long)row * ks.s + tc * DC + jd] = dk_acc[i][jd] * scale;
+      vb[(long long)row * ks.s + tc * DC + jd] = dv_acc[i][jd];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 bodies on the tensor cores: forward and dk/dv. One warpgroup (128
+// bf16 bodies on the tensor cores: forward, dq and dk/dv. One warpgroup (128
 // threads) per block owns the block's 64 output rows; products are
 // wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulate). The source note at the
 // top of the file says why 64 rows and what bounds these bodies.
@@ -1048,6 +1021,148 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// dq on the tensor cores: the forward's skeleton with the dk/dv body's dS.
+// Grid (q tiles, Hq, B), one warpgroup that owns the block's 64 q rows and
+// sums their dq over the visited kv tiles in order (no atomics). Shared: Q
+// and dO once, K and V twice (double buffer), each a swizzled [64][D] bf16
+// tile; each thread keeps the lse, delta and dlse of its two rows in
+// registers. S = Q.K^T and dP = dO.V^T take all operands K-major and go as
+// one batch; dS is formed in their accumulator layout and, rounded to bf16,
+// is the A operand of dQ += dS.K, K MN-major from the same tile.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const float* __restrict__ dlse,
+                          __nv_bfloat16* __restrict__ dq, Mask m, int Hq,
+                          int q_per_kv, Strides qs, Strides ks, float scale) {
+  using L = TileLayout<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t dOs = Qs + L::kBytes;
+  auto Ks = [&](int buf) { return Qs + (2 + 2 * buf) * L::kBytes; };
+  auto Vs = [&](int buf) { return Qs + (3 + 2 * buf) * L::kBytes; };
+
+  // Heaviest (latest) q tiles first, so the causal tail is short.
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / q_per_kv;
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16 + lane / 4;  // rows r0 and r0 + 8
+  const int c0 = (lane % 4) * 2;  // columns c0, c0 + 1 of each 8 columns
+
+  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vb = v + b * ks.b + hk * ks.h;
+  const int kv_end = kv_tiles_end(m, q0);
+  if (kv_end > 0) {
+    load_tile_async<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
+    load_tile_async<D>(dOs, dout + b * qs.b + h * qs.h, qs.s, q0, m.Sq);
+    load_tile_async<D>(Ks(0), kb, ks.s, 0, m.Skv);
+    load_tile_async<D>(Vs(0), vb, ks.s, 0, m.Skv);
+  }
+  cp_async_commit();
+
+  const long long rows = ((long long)b * Hq + h) * m.Sq;
+  float lse_i[2], delta_i[2], dlse_i[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    const bool in = row < m.Sq;
+    lse_i[i] = in ? lse[rows + row] : 0.f;
+    delta_i[i] = in ? delta[rows + row] : 0.f;
+    dlse_i[i] = in && dlse != nullptr ? dlse[rows + row] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < kv_end; ++kt) {
+    const int buf = kt & 1;
+    const int k0 = kt * kTile;
+    if (kt + 1 < kv_end) {
+      load_tile_async<D>(Ks(buf ^ 1), kb, ks.s, k0 + kTile, m.Skv);
+      load_tile_async<D>(Vs(buf ^ 1), vb, ks.s, k0 + kTile, m.Skv);
+    }
+    cp_async_commit();
+    cp_async_wait_prior();  // tile kt (and Q, dO) have landed
+    fence_async_shared();
+    __syncthreads();
+
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k<D>(Qs, kk), desc_k<D>(Ks(buf), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k<D>(dOs, kk), desc_k<D>(Vs(buf), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s[4j + 2i + c] = s(q row q0 + r0 + 8i, kv row k0 + 8j + c0 + c).
+    // Masked in edge tiles only: past Skv or across the diagonal. Rows past
+    // Sq read zeros and are never written.
+    const bool edge =
+        k0 + kTile > m.Skv ||
+        (m.causal && k0 + kTile - 1 + m.k_off > q0 + m.q_off);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r0 + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          const float p = edge && hidden(m, row, k0 + 8 * j + c0 + c)
+                              ? 0.f
+                              : __expf(s[e] * scale - lse_i[i]);
+          float dsum = dp[e] - delta_i[i];
+          if (dlse != nullptr) dsum += dlse_i[i];  // the TPU kernel's order
+          s[e] = p * dsum;                         // dS
+        }
+    }
+
+    // dS rounded to bf16 (the TPU kernel's ds.astype(k.dtype)), then dQ +=
+    // dS.K with K's rows contracted.
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(s, kk, da[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, da[kk], desc_mn<D>(Ks(buf), kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(da);
+    __syncthreads();  // buffer buf is refilled at tile kt + 2
+  }
+
+  // A row with no visited tile writes dq = 0.
+  __nv_bfloat16* qb = dq + b * qs.b + h * qs.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= m.Sq) continue;
+    __nv_bfloat16* qrow = qb + (long long)row * qs.s + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int e = 4 * j + 2 * i;
+      *reinterpret_cast<uint32_t*>(qrow + 8 * j) =
+          pack_bf16(acc[e] * scale, acc[e + 1] * scale);
+    }
+  }
+}
+
 // dk/dv on the tensor cores. Grid (kv tiles, Hkv, B), one warpgroup that
 // stays on one 64-row kv tile and walks the q tiles of every q head of the
 // GQA group in a fixed order (no atomics). Shared: K and V once; Q, dO and
@@ -1225,12 +1340,17 @@ template <int D>
 constexpr size_t dkv_smem() {
   return sizeof(float) * (6 * D * kTile + 2 * kTile * kTile + 3 * kTile);
 }
-// The tensor-core bodies: bf16 tiles (Q, K and V twice; K, V, and Q and dO
-// twice with the q tile's three fp32 rows twice), plus 1024 bytes to align
-// the first tile to the swizzle period.
+// The tensor-core bodies: bf16 tiles (forward: Q, K and V twice; dq: Q, dO,
+// K and V twice; dk/dv: K, V, and Q and dO twice with the q tile's three
+// fp32 rows twice), plus 1024 bytes to align the first tile to the swizzle
+// period.
 template <int D>
 constexpr size_t fwd_wgmma_smem() {
   return 5 * TileLayout<D>::kBytes + 1024;
+}
+template <int D>
+constexpr size_t dq_wgmma_smem() {
+  return 6 * TileLayout<D>::kBytes + 1024;
 }
 template <int D>
 constexpr size_t dkv_wgmma_smem() {
@@ -1262,9 +1382,9 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The forward and dk/dv route by dtype: bf16 to the tensor-core bodies, fp32
-// to the FMA bodies (the tensor cores have no fp32 product that meets the
-// fp32 limit). dq takes the FMA body in both.
+// Every kernel routes by dtype at compile time: bf16 to its tensor-core
+// body, fp32 to its FMA body (the tensor cores have no fp32 product that
+// meets the fp32 limit).
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, Problem p, cudaStream_t stream) {
@@ -1277,7 +1397,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return args(flash_fwd_wgmma_kernel<D>, kWgThreads, fwd_wgmma_smem<D>());
   else
-    return args(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>());
+    return args(flash_fwd_kernel<D>, kThreads, fwd_smem<D>());
 }
 
 template <typename T, int D>
@@ -1285,10 +1405,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* dlse,
               void* dq, Problem p, cudaStream_t stream) {
   const dim3 grid((p.m.Sq + kTile - 1) / kTile, p.Hq, p.B);
-  return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads, dq_smem<D>(),
-                stream, (const T*)q, (const T*)k, (const T*)v,
-                (const T*)dout, lse, delta, dlse, (T*)dq, p.m, p.Hq,
-                p.Hq / p.Hkv, p.qs, p.ks, p.scale);
+  const auto args = [&](auto kernel, int threads, size_t smem) {
+    return launch(kernel, grid, threads, smem, stream, (const T*)q,
+                  (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
+                  (T*)dq, p.m, p.Hq, p.Hq / p.Hkv, p.qs, p.ks, p.scale);
+  };
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return args(flash_bwd_dq_wgmma_kernel<D>, kWgThreads, dq_wgmma_smem<D>());
+  else
+    return args(flash_bwd_dq_kernel<D>, kThreads, dq_smem<D>());
 }
 
 template <typename T, int D>
@@ -1306,7 +1431,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     return args(flash_bwd_dkv_wgmma_kernel<D>, kWgThreads,
                 dkv_wgmma_smem<D>());
   else
-    return args(flash_bwd_dkv_kernel<T, D>, kThreads, dkv_smem<D>());
+    return args(flash_bwd_dkv_kernel<D>, kThreads, dkv_smem<D>());
 }
 
 // Returned for a head_dim or dtype code the library was not built for.

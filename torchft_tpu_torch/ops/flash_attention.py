@@ -9,9 +9,9 @@ against one k/v block, causal at global positions ``q_offset + i >=
 k_offset + j``. The kernels live in ``csrc/flash_attention.cu`` (built with
 ``nvcc`` for ``sm_90a`` at first use, bound with ``ctypes``); the source
 says what bounds them on the H100 and how the design answers it. The
-library routes by dtype: in bf16 the forward and dk/dv kernels run on the
-tensor cores (``wgmma``), in fp32 on FMA bodies, and dq on an FMA body in
-both; a call that cannot launch raises, whatever the dtype.
+library routes by dtype: in bf16 all three kernels run on the tensor cores
+(``wgmma``), in fp32 on FMA bodies; a call that cannot launch raises,
+whatever the dtype.
 
 Layout is the model's ``[B, S, H, D]`` in and out (the kernels read it
 through strides; no transpose), ``lse``/``delta``/``dlse`` are fp32

@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the training path from ``torchft_tpu_torch/ops/csrc`` with nvcc, one
    nvcc per source, all started together; then ``cuobjdump -sass`` of the
    flash library must show HGMMA (wgmma) instructions in the bf16 forward,
-   dq and dk/dv bodies at every head_dim (counts and ptxas' registers and
-   spills in ``sass_check.json``).
+   dq and dk/dv bodies at every head_dim, and that of the quantization
+   library no conversion or rounding instruction (I2F, I2FP, F2I, F2IP,
+   FRND) and no spill in any instantiation of the reduce kernel (counts by
+   opcode and ptxas' registers and spills in ``sass_check.json``).
 2. Flash kernels: each kernel against its plain PyTorch version on the card,
    element by element (``TOL``), at the training path's shapes
    (llama_small: B=8, S=1024, Hq=12, Hkv=4, D=64, bf16) and at further
@@ -38,9 +40,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain version on the card AND against the host's reduce (each rank's
    payload dequantized and summed in rank order, divided by R if averaging,
    requantized by ``collectives.quantize_blockwise``), bit for bit, for
-   R = 2, 3, 4 with and without averaging, on 1, 5 and 4096 rows and on
-   special rows; timed at a 32 MiB bucket with R = 2 and R = 4 beside its
-   plain version and its bound. Then ``python -m
+   R = 2, 3, 4 with and without averaging, on 1, 5 and 4096 rows, on
+   special rows, on tie-heavy rows (exact half-integer quotients) and on
+   quotient-boundary rows (quotients within a few ulps of the
+   half-integers and around the kernel's guard band, scales from subnormal
+   to near 2^121); timed at a 32 MiB bucket with R = 2, R = 4, R = 2
+   averaging and R = 2 averaging on tie-heavy rows, beside its plain
+   version and its bound. Then ``python -m
    torchft_tpu_torch.ops.bench_kernels`` in a process of its own: exit 0,
    ``ok`` true and every kernel of ``ops`` launched in it (the harness is
    the one path that runs the reduce: the training path reduces on the
@@ -160,57 +166,125 @@ def ptxas_report(text: str) -> dict:
     return {"functions": report, "warnings": warnings}
 
 
-def sass_check() -> dict:
-    """``cuobjdump -sass`` of the built flash library: raises unless the
-    bf16 forward, dq and dk/dv bodies hold HGMMA (wgmma) instructions at
-    every head_dim. Writes each kernel instantiation's HGMMA and HMMA
-    counts with ptxas' registers, stack and spill bytes to
-    ``sass_check.json`` and prints them."""
+def sass_opcodes(source: str, name: str = "") -> dict:
+    """{mangled kernel name: {opcode: count}} from ``cuobjdump -sass`` of
+    the built library of ``source``, for the kernels whose name holds
+    ``name``. Opcodes are counted without modifiers: ``I2F.S8`` counts as
+    ``I2F``."""
     import re
 
     from torchft_tpu_torch.ops import _cuda_build
 
-    lib = _cuda_build.library_path("flash_attention.cu")
+    lib = _cuda_build.library_path(source)
     cuobjdump = Path(_cuda_build._nvcc()).parent / "cuobjdump"
     proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise AssertionError(f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
-    counts, name = {}, None
+    # An instruction: its address comment, an optional predicate, then the
+    # opcode, whose modifiers follow after dots.
+    op_re = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_]*)")
+    counts, current = {}, None
     for line in proc.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1)
-            counts[name] = {"HGMMA": 0, "HMMA": 0}
-        elif name and "HGMMA" in line:
-            counts[name]["HGMMA"] += 1
-        elif name and "HMMA" in line:
-            counts[name]["HMMA"] += 1
-    ptxas = ptxas_report(
-        (_cuda_build.BUILD_DIR / "flash_attention.ptxas.txt").read_text()
-    )
+            current = counts.setdefault(m[1], {}) if name in m[1] else None
+            continue
+        m = op_re.match(line)
+        if m and current is not None:
+            current[m[1]] = current.get(m[1], 0) + 1
+    return counts
+
+
+# Conversion and rounding instructions the reduce kernel must not hold: its
+# decode, requantize and cast run on the fp32 and integer pipes.
+REDUCE_BANNED_OPS = ("I2F", "I2FP", "F2I", "F2IP", "FRND")
+# The opcodes printed for each reduce instantiation (all land in the JSON).
+REDUCE_SHOWN_OPS = (
+    "I2F", "I2FP", "F2I", "F2IP", "FRND", "MUFU", "FCHK", "CALL", "FADD",
+    "FMUL", "FFMA", "FMNMX", "PRMT", "LDG", "STG",
+)
+
+
+def sass_check() -> dict:
+    """``cuobjdump -sass`` of the built libraries: raises unless the bf16
+    forward, dq and dk/dv bodies of the flash library hold HGMMA (wgmma)
+    instructions at every head_dim, and unless no instantiation of the
+    reduce kernel (``reduce_rows_int8_kernel<R>``) holds a conversion or
+    rounding instruction (``REDUCE_BANNED_OPS``) or spills. Writes each
+    flash instantiation's HGMMA and HMMA counts and each reduce
+    instantiation's opcode counts, with ptxas' registers, stack and spill
+    bytes, to ``sass_check.json`` and prints them."""
+    import re
+
+    from torchft_tpu_torch.ops import _cuda_build
+
+    def ptxas(source: str) -> dict:
+        stem = Path(source).stem
+        return ptxas_report(
+            (_cuda_build.BUILD_DIR / f"{stem}.ptxas.txt").read_text()
+        )
+
+    flash_ptxas = ptxas("flash_attention.cu")
     table = {}
-    for mangled, c in counts.items():
+    for mangled, ops in sass_opcodes("flash_attention.cu").items():
         m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)EE", mangled)
         if not m:
             continue
         # The tensor-core bodies take bf16 only, the FMA bodies fp32 only.
         dtype = "bf16" if "_wgmma_" in m[1] else "fp32"
-        key = f"{m[1]}<{dtype}, D={m[2]}>"
-        table[key] = {**c, **ptxas["functions"].get(mangled, {})}
+        table[f"{m[1]}<{dtype}, D={m[2]}>"] = {
+            "HGMMA": ops.get("HGMMA", 0), "HMMA": ops.get("HMMA", 0),
+            **flash_ptxas["functions"].get(mangled, {}),
+        }
     missing = [
         f"{k}<bf16, D={d}>" for k in TENSOR_CORE_KERNELS for d in HEAD_DIMS
         if table.get(f"{k}<bf16, D={d}>", {}).get("HGMMA", 0) <= 0
     ]
-    result = {"kernels": table, "ptxas_warnings": ptxas["warnings"]}
+
+    quant_ptxas = ptxas("quantization.cu")
+    reduce = {}
+    for mangled, ops in sass_opcodes(
+        "quantization.cu", "reduce_rows_int8_kernel"
+    ).items():
+        m = re.search(r"reduce_rows_int8_kernelILi(\d+)EE", mangled)
+        ranks = m[1] if m and m[1] != "0" else "run time"
+        reduce[f"reduce_rows_int8_kernel<R={ranks}>"] = {
+            "ops": dict(sorted(ops.items())),
+            **quant_ptxas["functions"].get(mangled, {}),
+        }
+    bad_reduce = {}
+    for key, rec in reduce.items():
+        found = {op: rec["ops"][op] for op in REDUCE_BANNED_OPS if rec["ops"].get(op)}
+        spilled = rec.get("spill_stores", 0) + rec.get("spill_loads", 0)
+        if spilled:
+            found["spill bytes"] = spilled
+        if found:
+            bad_reduce[key] = found
+
+    result = {
+        "kernels": table, "reduce": reduce,
+        "ptxas_warnings": flash_ptxas["warnings"] + quant_ptxas["warnings"],
+    }
     (OUT / "sass_check.json").write_text(json.dumps(result, indent=1))
     for key, rec in sorted(table.items()):
         print(f"sass: {key}: " + ", ".join(f"{k} {v}" for k, v in rec.items()),
               flush=True)
-    for w in ptxas["warnings"]:
+    for key, rec in sorted(reduce.items()):
+        print(f"sass: {key}: " + ", ".join(
+            f"{op} {rec['ops'].get(op, 0)}" for op in REDUCE_SHOWN_OPS
+        ) + ", " + ", ".join(f"{k} {v}" for k, v in rec.items() if k != "ops"),
+              flush=True)
+    for w in result["ptxas_warnings"]:
         print(f"ptxas: {w}", flush=True)
     if missing:
         raise AssertionError(f"no HGMMA in the SASS of {missing}")
+    if len(reduce) != 9 or bad_reduce:
+        raise AssertionError(
+            f"reduce kernel SASS: want 9 instantiations (R = 1..8 and run "
+            f"time) free of {REDUCE_BANNED_OPS} and spills, got "
+            f"{sorted(reduce)}, offending {bad_reduce}"
+        )
     return result
 
 
@@ -1009,6 +1083,56 @@ def reduce_special_inputs(ranks: int) -> tuple:
     return q, s
 
 
+def reduce_tie_inputs(ranks: int, rows: int, seed: int) -> tuple:
+    """Tie-heavy payloads: per row one power-of-two scale shared by every
+    rank, and column 0 at +127 in every rank. Every product, sum and
+    average by a power of two is then exact, the requantize scale is the
+    rank scale times R (1 with averaging), and each quotient is sum(q) / R
+    exactly: an exact tie wherever sum(q) is odd at R = 2 (half the values)
+    and 2 mod 4 at R = 4 (a quarter). The reduce's reciprocal multiply
+    cannot decide a tie: a lane holding one takes the correctly rounded
+    divide."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, size=(ranks, rows, 512), dtype=np.int8)
+    q[:, :, 0] = 127
+    s = (2.0 ** rng.integers(-60, 61, size=rows)).astype(np.float32)
+    return q, np.repeat(s[None], ranks, axis=0)
+
+
+# Exponents of the quotient-boundary rows' scales: subnormal, near 2^-128
+# (where the requantize scale's reciprocal overflows), normal, and near
+# 2^121 (where the sum may overflow to inf).
+BOUNDARY_EXPONENTS = (
+    -146, -140, -134, -130, -129, -128, -127, -126, -125, -100, -60, -20,
+    -1, 0, 1, 20, 60, 100, 118, 119, 120, 121,
+)
+
+
+def reduce_boundary_inputs(ranks: int, seed: int) -> tuple:
+    """Quotient-boundary payloads: per row a scale with a full random
+    mantissa at each of ``BOUNDARY_EXPONENTS`` (eight rows each), each
+    rank's scale that one times 1 + d_r with |d_r| < 2^-11 (d_0 = 0, and 0
+    for every rank on half the rows), and column 0 at +127 in every rank.
+    The quotients then cluster around the half-integers: on half the rows
+    within a few ulps of them, on either side; on the others spread over
+    the reduce's guard band around them and just outside it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    exps = np.repeat(np.array(BOUNDARY_EXPONENTS), 8)
+    rows = exps.size
+    q = rng.integers(-127, 128, size=(ranks, rows, 512), dtype=np.int8)
+    q[:, :, 0] = 127
+    base = rng.uniform(1.0, 2.0, rows) * 2.0 ** exps.astype(np.float64)
+    d = rng.uniform(-2.0**-11, 2.0**-11, (ranks, rows))
+    d[0] = 0.0
+    d[:, ::2] = 0.0
+    s = (base[None] * (1.0 + d)).astype(np.float32)
+    return q, s
+
+
 def reduce_host(q, s, avg: bool) -> tuple:
     """The host's reduce of int8 payloads q [R, rows, 512], scales [R, rows]:
     each rank dequantized and added in rank order in fp32, divided by
@@ -1069,15 +1193,19 @@ def reduce_case(name: str, q_host, s_host, avg: bool) -> float:
 
 
 def reduce_timing() -> dict:
-    """The reduce kernel at one 32 MiB bucket (TIMED_N values) for each R in
-    TIMED_RANKS, cycling over four inputs (at R = 2 together 67 MB, more
-    than the 50 MB L2): launched straight through its C entry point on
-    preallocated outputs (``ms``), through its wrapper (``wrapper_ms``), and
-    its plain version. Its bound: (R + 1) * (n + 4n/512) bytes over HBM
-    against about 3R + 6 fp32 operations per value (per rank a convert, a
-    multiply and an add; the divide, |x|, max, divide, rint and clamp of the
-    requantize) over the fp32 rate. The R = 2 record is the kernel's; the
-    R = 4 one rides in it under ``ranks_4``."""
+    """The reduce kernel at one 32 MiB bucket (TIMED_N values), cycling over
+    four inputs (at R = 2 together 67 MB, more than the 50 MB L2): launched
+    straight through its C entry point on preallocated outputs (``ms``),
+    through its wrapper (``wrapper_ms``), and its plain version. Timed at
+    each R in TIMED_RANKS without averaging, then at R = 2 with averaging
+    (what the Manager asks for by default) on the same inputs and on
+    tie-heavy ones (``reduce_tie_inputs``: half the quotients are ties, so
+    nearly every lane takes the kernel's correctly rounded divide). Its
+    bound: (R + 1) * (n + 4n/512) bytes over HBM against about 3R + 6 fp32
+    operations per value (per rank a convert, a multiply and an add; the
+    divide, |x|, max, divide, rint and clamp of the requantize) over the
+    fp32 rate. The R = 2 record is the kernel's; the others ride in it
+    under ``ranks_4``, ``avg`` and ``tie_heavy``."""
     import torch
 
     from torchft_tpu_torch.ops import quantization as Q
@@ -1090,35 +1218,49 @@ def reduce_timing() -> dict:
     q_out = torch.empty((rows, 512), dtype=torch.int8, device=dev)
     s_out = torch.empty(rows, device=dev)
     rcs = []
-    records = {}
-    for ranks in TIMED_RANKS:
-        inputs = []
-        for i in range(4):
-            q, s = reduce_inputs(ranks, rows, seed=40 + 4 * ranks + i)
-            inputs.append((torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)))
-        raw = [(q.data_ptr(), s.data_ptr(), ranks, rows, 0, q_out.data_ptr(),
-                s_out.data_ptr(), stream) for q, s in inputs]
+
+    def timed(ranks: int, avg: bool, inputs, what: str = "seeded") -> dict:
+        raw = [(q.data_ptr(), s.data_ptr(), ranks, rows, int(avg),
+                q_out.data_ptr(), s_out.data_ptr(), stream) for q, s in inputs]
         rec = {}
         for key, fn, args, iters in (
             ("ms", lambda *a: rcs.append(lib.tft_reduce_rows_int8(*a)), raw, 50),
-            ("wrapper_ms", Q.fused_reduce_int8, inputs, 50),
-            ("plain_ms", Q.reduce_rows_reference, inputs, 10),
+            ("wrapper_ms", lambda q, s: Q.fused_reduce_int8(q, s, avg), inputs, 50),
+            ("plain_ms", lambda q, s: Q.reduce_rows_reference(q, s, avg), inputs, 10),
         ):
             rec[key], rec[key.replace("ms", "host_ms")] = time_cold(fn, args, iters)
         t_bytes = (ranks + 1) * (n + 4 * rows) / PEAK_BYTES * 1e3
         t_ops = (3 * ranks + 6) * n / PEAK_FLOPS["float32"] * 1e3
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"timing reduce R={ranks} n={n}: " + ", ".join(
+        print(f"timing reduce R={ranks} avg={avg} {what} n={n}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec.items() if isinstance(v, float)
         ) + f" ({rec['bound_by']} bound)", flush=True)
-        records[ranks] = rec
-        del inputs, raw
+        return rec
+
+    def on_card(pairs) -> list:
+        return [(torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev))
+                for q, s in pairs]
+
+    records = {}
+    for ranks in TIMED_RANKS:
+        inputs = on_card(
+            reduce_inputs(ranks, rows, seed=40 + 4 * ranks + i) for i in range(4)
+        )
+        records[ranks] = timed(ranks, False, inputs)
+        if ranks == 2:
+            records["avg"] = timed(ranks, True, inputs)
+        del inputs
+    ties = on_card(reduce_tie_inputs(2, rows, seed=60 + i) for i in range(4))
+    records["tie_heavy"] = timed(2, True, ties, "tie-heavy")
+    del ties
     if any(rcs):
         raise AssertionError(f"a timed launch failed: CUDA errors {set(rcs)}")
     reduce = dict(records[TIMED_RANKS[0]])
     reduce["ranks"] = TIMED_RANKS[0]
     reduce["ranks_4"] = records[4]
+    reduce["avg"] = records["avg"]
+    reduce["tie_heavy"] = records["tie_heavy"]
     reduce["library_ms"] = None
     reduce["library_call"] = "none: no single PyTorch call computes it"
     return reduce
@@ -1165,6 +1307,13 @@ def reduce_phase() -> tuple:
                 ))
             err = max(err, reduce_case(
                 "special rows", *reduce_special_inputs(ranks), avg
+            ))
+            err = max(err, reduce_case(
+                "tie-heavy", *reduce_tie_inputs(ranks, 512, seed=ranks), avg
+            ))
+            err = max(err, reduce_case(
+                "quotient boundary", *reduce_boundary_inputs(ranks, seed=ranks),
+                avg,
             ))
     record = reduce_timing()
     record["max_abs_err"] = err

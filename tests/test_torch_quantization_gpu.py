@@ -45,11 +45,17 @@ def test_kernels_count_their_launches():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("avg", [False, True])
-@pytest.mark.parametrize("ranks", [2, 3, 4])
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12])
 def test_reduce_kernel_matches_plain_and_host_on_card(ranks, avg):
     """chip_smoke.py's reduce cases, on row counts that are not multiples
-    of 32 too: 0 differing payload bytes and scale bits against the plain
-    version and the host's reduce."""
+    of 32 too, at every R the kernel is compiled for (1 to 8) and at run
+    time (9, 12), averaging by a multiply for R a power of two and by a
+    divide otherwise: seeded rows, special rows, tie-heavy rows (exact
+    half-integer quotients) and quotient-boundary rows (quotients within a
+    few ulps of the half-integers and around the kernel's guard band,
+    scales subnormal, near 2^-128 and near 2^121). 0 differing payload
+    bytes and scale bits against the plain version and the host's
+    reduce."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
     for rows in (1, 5, 33, 1000):
@@ -59,6 +65,14 @@ def test_reduce_kernel_matches_plain_and_host_on_card(ranks, avg):
     chip_smoke.reduce_case(
         "special rows", *chip_smoke.reduce_special_inputs(ranks), avg
     )
+    for seed in (11, 12):
+        chip_smoke.reduce_case(
+            "tie-heavy", *chip_smoke.reduce_tie_inputs(ranks, 1000, seed), avg
+        )
+        chip_smoke.reduce_case(
+            "quotient boundary", *chip_smoke.reduce_boundary_inputs(ranks, seed),
+            avg,
+        )
 
 
 @pytest.mark.gpu

@@ -65,7 +65,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the whole-sequence flash kernels never, and it must end in the flash drill's
    parameters (at sp=1 the block kernels compute the whole-sequence
    kernels' bits: one body serves both).
-9. The ``{"kernels": [...]}`` line, the card line, and the last line:
+9. DiLoCo path: two replica groups of ``python -m
+   torchft_tpu_torch.train_diloco`` (llama_debug, dense attention at
+   S=64, the arguments of the JAX package's DiLoCo kill/heal test:
+   ``--outer-steps 10 --sync-every 4 --n-fragments 2 --fragment-sync-delay
+   0 --quantize --quantize-bits 4 --error-feedback --batch-size 4
+   --seq-len 64``) on the card; group 1 is SIGKILLed after outer step 2
+   and restarted, heals the global state from group 0, and both must end
+   at outer step 10 with equal ``global_sha``, finite losses and device
+   ``cuda:0``. Its pseudogradients are quantized on the host, as in the
+   JAX package, so no kernel of ``ops`` may launch. Prints the drill's
+   wall time and each group's median inner-step and sync times.
+10. LocalSGD: two ``LocalSGD`` replicas in threads of this process, each
+   with its own Manager, against an in-process lighthouse, over
+   llama_debug parameters on the card (different seeds); one
+   ``sync_every=2`` round with the int8 quantized average. Both must
+   commit and end with parameters equal to each other and to the host
+   quantizer's int8 average of the same payloads, bit for bit, and the
+   quantize and dequantize kernels must have launched for both replicas
+   (the counts are set to 0 just before).
+11. The ``{"kernels": [...]}`` line, the card line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
@@ -1392,6 +1411,195 @@ def path_phase(name: str, args, kernels, absent=()) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: Streaming DiLoCo and LocalSGD
+# ---------------------------------------------------------------------------
+
+DILOCO_OUTER_STEPS = 10
+DILOCO_ARGS = [
+    "--outer-steps", str(DILOCO_OUTER_STEPS), "--sync-every", "4",
+    "--n-fragments", "2", "--fragment-sync-delay", "0", "--quantize",
+    "--quantize-bits", "4", "--error-feedback", "--batch-size", "4",
+    "--seq-len", "64", "--device", "cuda",
+]
+
+
+def diloco_phase() -> dict:
+    """Phase 9: the kill/heal drill over ``train_diloco`` on the card.
+    Raises unless both groups end at outer step 10 with equal
+    ``global_sha``, finite losses, device ``cuda:0`` and no kernel launch.
+    Returns {group: result JSON} with the drill's wall time under
+    ``"wall_s"``."""
+    import shutil
+
+    from torchft_tpu_torch.drill import kill_heal_drill
+
+    result_dir = OUT / "diloco"
+    shutil.rmtree(result_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    results = kill_heal_drill(
+        DILOCO_ARGS, str(result_dir), str(result_dir / "logs"),
+        kill_after_step=2, timeout_s=400.0,
+        trainer="torchft_tpu_torch.train_diloco", mark="outer_step={n} loss",
+    )
+    wall = time.monotonic() - t0
+    healed = (result_dir / "logs" / "group1.log").read_text(errors="replace")
+    if "healing from replica_rank=0" not in healed.split("SIGKILLed")[-1]:
+        raise AssertionError("diloco: the restarted group 1 did not heal from group 0")
+    for g, r in results.items():
+        if r["final_outer_step"] != DILOCO_OUTER_STEPS:
+            raise AssertionError(
+                f"diloco: group {g} ended at outer step {r['final_outer_step']}"
+            )
+        if not r["losses"] or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"diloco: group {g} losses not finite: {r['losses']}")
+        if r["device"] != "cuda:0":
+            raise AssertionError(f"diloco: group {g} ran on {r['device']}")
+        launched = {k: v for k, v in r["kernel_launches"].items() if v}
+        if launched:
+            raise AssertionError(
+                f"diloco: group {g} launched {launched}: its pseudogradients "
+                "are quantized on the host and S=64 attention is dense"
+            )
+    if results[0]["global_sha"] != results[1]["global_sha"]:
+        raise AssertionError(
+            "diloco: groups disagree after kill + heal: "
+            f"{results[0]['global_sha']} vs {results[1]['global_sha']}"
+        )
+    for g, r in results.items():
+        print(
+            f"diloco group {g}: final_outer_step {r['final_outer_step']} "
+            f"inner_steps {r['inner_steps']} syncs {r['syncs']} losses "
+            f"{[round(x, 4) for x in r['losses']]} median inner step "
+            f"{r['median_inner_ms']:.2f} ms median sync "
+            f"{r['median_sync_ms']:.2f} ms",
+            flush=True,
+        )
+    print(f"diloco ok: global_sha equal {results[0]['global_sha'][:16]}, "
+          f"drill wall {wall:.1f}s", flush=True)
+    return {"wall_s": wall, **results}
+
+
+def localsgd_phase() -> dict:
+    """Phase 10: one int8 LocalSGD round between two in-process replicas
+    on the card. Raises unless both commit with parameters equal to each
+    other and to the host quantizer's average, bit for bit, and unless the
+    quantize and dequantize kernels launched for both. Returns the
+    launches of this phase and each replica's sync wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.collectives import (
+        dequantize_blockwise,
+        quantize_blockwise,
+    )
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.local_sgd import LocalSGD
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, llama_debug
+    from torchft_tpu_torch.ops import quantization
+    from torchft_tpu_torch.process_group import ProcessGroupSocket
+
+    dev = torch.device("cuda", 0)
+    models = []
+    for r in range(2):
+        torch.manual_seed(100 + r)  # the replicas start apart
+        models.append(Transformer(llama_debug()).to(dev))
+    before = [
+        {n: p.detach().clone() for n, p in m.named_parameters()} for m in models
+    ]
+    n_values = sum(p.numel() for p in before[0].values())
+    chunks = -(-n_values // quantization._TRANSFER_CHUNK)
+    lighthouse = LighthouseServer(
+        bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=10000,
+        quorum_tick_ms=20,
+    )
+
+    def replica(r: int) -> tuple:
+        params = dict(models[r].named_parameters())
+
+        def set_params(values) -> None:
+            with torch.no_grad():
+                for n, v in values.items():
+                    params[n].copy_(torch.as_tensor(v))
+
+        manager = Manager(
+            pg=ProcessGroupSocket(timeout=30.0),
+            min_replica_size=2,
+            use_async_quorum=False,
+            timeout=60.0,
+            quorum_timeout=60.0,
+            replica_id=f"chip_smoke_localsgd{r}",
+            lighthouse_addr=lighthouse.address(),
+            group_rank=0,
+            group_world_size=1,
+            init_sync=False,
+        )
+        try:
+            local_sgd = LocalSGD(
+                manager, lambda: params, set_params, sync_every=2,
+                should_quantize=True,
+            )
+            if local_sgd.step() is not None:
+                raise AssertionError("LocalSGD synced before sync_every")
+            t0 = time.monotonic()
+            committed = local_sgd.step()
+            torch.cuda.synchronize(dev)
+            return committed, time.monotonic() - t0
+        finally:
+            manager.shutdown()
+
+    for kernel in quantization.LAUNCHES:
+        quantization.LAUNCHES[kernel] = 0
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            outs = [f.result(timeout=300) for f in
+                    [pool.submit(replica, r) for r in range(2)]]
+    finally:
+        lighthouse.shutdown()
+    launches = dict(quantization.LAUNCHES)
+    if not all(committed for committed, _ in outs):
+        raise AssertionError(f"localsgd: a replica did not commit: {outs}")
+    # Each replica quantizes its payload and dequantizes the reduced one in
+    # `chunks` transfer chunks: 2 * chunks launches need both replicas.
+    for kernel in QUANT_KERNELS:
+        if launches[kernel] != 2 * chunks:
+            raise AssertionError(
+                f"localsgd: {kernel} launched {launches[kernel]} times, want "
+                f"{2 * chunks} ({chunks} per replica)"
+            )
+    for (name, p0), p1 in zip(models[0].named_parameters(), models[1].parameters()):
+        if not torch.equal(p0, p1):
+            raise AssertionError(f"localsgd: replicas differ in {name}")
+    # The host quantizer's average of the same payloads: each rank's flat
+    # quantized and decoded, summed in rank order, requantized, decoded,
+    # halved (the wire's blocks are block-aligned, so its chunking changes
+    # no value). The kernels write the host quantizer's bytes.
+    acc = np.zeros(n_values, np.float32)
+    for b in before:
+        flat = torch.cat([t.reshape(-1) for t in b.values()]).cpu().numpy()
+        acc += dequantize_blockwise(*quantize_blockwise(flat, 8), n_values, 8)
+    want = dequantize_blockwise(*quantize_blockwise(acc, 8), n_values, 8)
+    want *= np.float32(0.5)
+    got = torch.cat(
+        [p.detach().reshape(-1) for p in models[0].parameters()]
+    ).cpu().numpy()
+    differ = int((got.view(np.int32) != want.view(np.int32)).sum())
+    if differ:
+        raise AssertionError(
+            f"localsgd: {differ} of {n_values} values differ from the host "
+            "quantizer's int8 average"
+        )
+    sync_ms = [secs * 1e3 for _, secs in outs]
+    print(f"localsgd ok: {n_values} values, int8, params equal on both "
+          "replicas and to the host quantizer's average bit for bit, sync "
+          f"{sync_ms[0]:.1f} / {sync_ms[1]:.1f} ms, launches {launches}",
+          flush=True)
+    return {"launches": launches, "sync_ms": sync_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1430,6 +1638,8 @@ def main() -> int:
             "the block and whole-sequence entry points no longer compute "
             "the same bits"
         )
+    diloco_phase()
+    localsgd = localsgd_phase()
     for g in (0, 1):
         a, b, c = path[g], quantized[g], ring[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
@@ -1446,6 +1656,8 @@ def main() -> int:
             drill = (quantized if name in QUANT_KERNELS
                      else ring if name in BLOCK_KERNELS else path)
             launches = sum(r["kernel_launches"][name] for r in drill.values())
+        if name in QUANT_KERNELS:
+            rec = {**rec, "localsgd_launches": localsgd["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -1,0 +1,74 @@
+"""The port's Streaming DiLoCo trainer end to end on the CPU (the CPU twin
+of ``chip_smoke.py``'s DiLoCo drill): two replica-group OS processes of
+``python -m torchft_tpu_torch.train_diloco --device cpu`` on the int4 +
+error-feedback wire; group 1 is SIGKILLed after outer step 2, restarts,
+heals the global state (fragment backups + outer optimizer) from the
+survivor, and both groups finish the outer-step target with the same
+``global_sha``. Also the trainer's refusals."""
+
+import math
+import subprocess
+import sys
+
+import pytest
+
+from torchft_tpu_torch.drill import kill_heal_drill
+
+OUTER_STEPS = 6
+DRILL_ARGS = [
+    "--outer-steps", str(OUTER_STEPS), "--sync-every", "4", "--n-fragments",
+    "2", "--fragment-sync-delay", "0", "--quantize", "--quantize-bits", "4",
+    "--error-feedback", "--batch-size", "4", "--seq-len", "64",
+    "--device", "cpu",
+]
+
+
+# Covers a first-use build of the C++ binaries (~1 min) before the drill.
+@pytest.mark.timeout(300)
+def test_diloco_two_groups_kill_heal_global_state_equal(tmp_path):
+    results = kill_heal_drill(
+        DRILL_ARGS,
+        str(tmp_path / "results"),
+        str(tmp_path / "logs"),
+        kill_after_step=2,
+        timeout_s=200.0,
+        env={"OMP_NUM_THREADS": "1"},
+        trainer="torchft_tpu_torch.train_diloco",
+        mark="outer_step={n} loss",
+    )
+    healed = (tmp_path / "logs" / "group1.log").read_text()
+    assert "SIGKILLed after step 2" in healed
+    assert "healing from replica_rank=0" in healed.split("SIGKILLed")[1]
+    for r in results.values():
+        assert r["final_outer_step"] == OUTER_STEPS
+        assert not r["drained"]
+        assert r["device"] == "cpu"
+        assert r["losses"] and all(math.isfinite(x) for x in r["losses"])
+        # CPU tensors take the plain versions: no kernel launch is counted.
+        assert not any(r["kernel_launches"].values())
+    assert results[0]["global_sha"] == results[1]["global_sha"], results
+
+
+def _run(*flags):
+    return subprocess.run(
+        [sys.executable, "-m", "torchft_tpu_torch.train_diloco", *flags],
+        capture_output=True, text=True, timeout=60,
+    )
+
+
+def test_durable_dir_exits_naming_roadmap():
+    proc = _run("--device", "cpu", "--durable-dir", "x")
+    assert proc.returncode == 2
+    assert "ROADMAP.md" in proc.stderr and "durable" in proc.stderr, proc.stderr
+
+
+def test_no_card_exits_naming_the_cpu_flag():
+    """The trainer runs on cuda by default and never falls back: without a
+    card it exits naming --device cpu."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default runs on it")
+    proc = _run("--steps", "1")
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr, proc.stderr

@@ -1,0 +1,62 @@
+"""Helpers shared by the port's trainers (``train_hsdp``, ``train_diloco``):
+the flags not ported yet, the preemption-drain signal and the replica
+group's data seed. The port's
+copies of the repo root ``_train_common.py``'s ``drain_signal`` and
+``group_data_seed``; the JAX trainers' CPU pinning, durable regime and perf
+helpers are not ported (ROADMAP.md queue 1)."""
+
+from __future__ import annotations
+
+import zlib
+
+# Flags the JAX trainers have whose paths are not ported yet, with the
+# ROADMAP.md item that ports them.
+UNPORTED = {
+    "pg-sharded": "queue 1: checkpointing/pg_transport + sharded",
+    "durable_dir": "queue 1: checkpointing/durable",
+    "moe": "queue 1: MoE / expert parallelism",
+    "pipeline": "queue 1: parallel/pipeline",
+    "ulysses": "queue 1: parallel/ulysses",
+}
+
+
+def drain_signal(enabled: bool = True, on_signal=None):
+    """Installs the preemption-drain SIGTERM handler and returns a zero-arg
+    callable reading the flag: the loop drains at its next step boundary
+    (finish the step, ``manager.leave()``, exit 0). A second SIGTERM
+    escalates to default kill semantics.
+
+    ``on_signal``: optional zero-arg callable run inside the handler (flags
+    and socket shutdowns only). ``train_diloco`` passes
+    ``manager.abort_pending_quorum`` through a late-bound holder, so a
+    trainer blocked in a quorum wait when the SIGTERM lands drains at once
+    instead of waiting out a quorum that may never form again."""
+    import signal
+
+    flag = [False]
+    if enabled:
+
+        def _on_sigterm(_signum, _frame):
+            flag[0] = True
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            if on_signal is not None:
+                try:
+                    on_signal()
+                except Exception:  # noqa: BLE001 - never die in a handler
+                    pass
+
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    return lambda: flag[0]
+
+
+def group_data_seed(replica_group: str) -> int:
+    """Deterministic data-shard seed for a replica group id: stable ACROSS
+    process incarnations (``hash()`` is per-process randomized, which would
+    hand a relaunched group an unrelated stream) and across the trainers
+    (DistributedSampler semantics, reference data.py)."""
+    seed = (
+        int(replica_group)
+        if replica_group.isdigit()
+        else zlib.crc32(replica_group.encode())
+    )
+    return seed % (2**31)

@@ -1,7 +1,8 @@
-"""Kill-and-heal drill: two replica groups of ``train_hsdp`` against one
-lighthouse; one group is SIGKILLed mid-run, restarted, heals from the
-survivor, and both finish (:func:`kill_heal_drill`; driven by
-``chip_smoke.py`` on the card and by the CPU integration test)."""
+"""Kill-and-heal drill: two replica groups of a trainer (``train_hsdp`` or
+``train_diloco``) against one lighthouse; one group is SIGKILLed mid-run,
+restarted, heals from the survivor, and both finish
+(:func:`kill_heal_drill`; driven by ``chip_smoke.py`` on the card and by the
+CPU integration tests)."""
 
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ _REPO = Path(__file__).resolve().parent.parent
 
 
 def _spawn(
-    group: int, trainer_args: Sequence[str], lighthouse: str, log: Path,
-    env: Optional[Dict[str, str]],
+    trainer: str, group: int, trainer_args: Sequence[str], lighthouse: str,
+    log: Path, env: Optional[Dict[str, str]],
 ) -> subprocess.Popen:
     full_env = dict(os.environ)
     full_env.update(env or {})
@@ -32,7 +33,7 @@ def _spawn(
     )
     with open(log, "a") as out:
         return subprocess.Popen(
-            [sys.executable, "-m", "torchft_tpu_torch.train_hsdp", *trainer_args],
+            [sys.executable, "-m", trainer, *trainer_args],
             cwd=str(_REPO),
             env=full_env,
             stdout=out,
@@ -54,13 +55,16 @@ def kill_heal_drill(
     kill_after_step: int = 3,
     timeout_s: float = 600.0,
     env: Optional[Dict[str, str]] = None,
+    trainer: str = "torchft_tpu_torch.train_hsdp",
+    mark: str = "[group 1] step {n} loss",
 ) -> Dict[int, dict]:
-    """Runs groups 0 and 1 of ``python -m torchft_tpu_torch.train_hsdp
-    <trainer_args> --min-replicas 2 --result-dir <result_dir>``; once group
-    1 has committed ``kill_after_step`` it is SIGKILLed and restarted at
-    once. Returns {group: result JSON}; raises if a group fails or the
-    drill outlasts ``timeout_s``. Every process it starts is stopped before
-    it returns."""
+    """Runs groups 0 and 1 of ``python -m <trainer> <trainer_args>
+    --min-replicas 2 --result-dir <result_dir>``; once group 1's log shows
+    ``mark`` formatted with ``n=kill_after_step`` (its progress line for
+    that committed step; ``train_diloco``'s is ``"outer_step={n} loss"``) it
+    is SIGKILLed and restarted at once. Returns {group: result JSON}; raises
+    if a group fails or the drill outlasts ``timeout_s``. Every process it
+    starts is stopped before it returns."""
     from torchft_tpu_torch.coordination import LighthouseServer
 
     result_dir = os.path.abspath(result_dir)  # the trainers run in the repo root
@@ -79,9 +83,12 @@ def kill_heal_drill(
     try:
         for g in range(2):
             procs.append(
-                _spawn(g, args, lighthouse.address(), logs / f"group{g}.log", env)
+                _spawn(
+                    trainer, g, args, lighthouse.address(),
+                    logs / f"group{g}.log", env,
+                )
             )
-        mark = f"[group 1] step {kill_after_step} loss"
+        mark = mark.format(n=kill_after_step)
         victim_log = logs / "group1.log"
         while mark not in victim_log.read_text(errors="replace"):
             if procs[1].poll() is not None:
@@ -95,7 +102,7 @@ def kill_heal_drill(
         _stop(procs[1])
         with open(victim_log, "a") as f:
             f.write(f"\n=== SIGKILLed after step {kill_after_step}; restart ===\n")
-        procs[1] = _spawn(1, args, lighthouse.address(), victim_log, env)
+        procs[1] = _spawn(trainer, 1, args, lighthouse.address(), victim_log, env)
         for g, proc in enumerate(procs):
             left = max(deadline - time.monotonic(), 1.0)
             try:

@@ -45,33 +45,7 @@ import statistics
 import sys
 import time
 
-# Flags the JAX trainer has whose paths are not ported yet, with the
-# ROADMAP.md item that ports them.
-_UNPORTED = {
-    "pg-sharded": "queue 1: checkpointing/pg_transport + sharded",
-    "durable_dir": "queue 1: checkpointing/durable",
-    "moe": "queue 1: MoE / expert parallelism",
-    "pipeline": "queue 1: parallel/pipeline",
-    "ulysses": "queue 1: parallel/ulysses",
-}
-
-
-def drain_signal(enabled: bool = True):
-    """Installs the preemption-drain SIGTERM handler and returns a zero-arg
-    callable reading the flag: the loop drains at its next step boundary
-    (finish the step, ``manager.leave()``, exit 0). A second SIGTERM
-    escalates to default kill semantics."""
-    import signal
-
-    flag = [False]
-    if enabled:
-
-        def _on_sigterm(_signum, _frame):
-            flag[0] = True
-            signal.signal(signal.SIGTERM, signal.SIG_DFL)
-
-        signal.signal(signal.SIGTERM, _on_sigterm)
-    return lambda: flag[0]
+from torchft_tpu_torch._train_common import UNPORTED, drain_signal
 
 
 def _parse(argv=None) -> argparse.Namespace:
@@ -122,7 +96,7 @@ def _parse(argv=None) -> argparse.Namespace:
     if unported:
         parser.error(
             "not ported to torchft_tpu_torch yet: "
-            + "; ".join(f"{k} (ROADMAP.md {_UNPORTED[k]})" for k in unported)
+            + "; ".join(f"{k} (ROADMAP.md {UNPORTED[k]})" for k in unported)
         )
     return args
 

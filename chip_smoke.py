@@ -33,8 +33,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    against their plain versions on the card AND against the host quantizer
    that defines the wire (``collectives.quantize_blockwise`` /
    ``dequantize_blockwise``), bit for bit: 0 differing payload bytes, scale
-   bits and dequantized bits, at the quantized path's bucket sizes (the
-   chunked embedding and lm_head buckets included) and on special values.
+   bits and dequantized bits, at the quantized paths' bucket sizes (the
+   chunked embedding and lm_head buckets of llama_small, and ResNet-50's)
+   and on special values.
    Timed at a 32 MiB bucket beside the plain versions and their bound.
 5. Fused reduce kernel and the kernel harness: the int8 reduce against its
    plain version on the card AND against the host's reduce (each rank's
@@ -84,7 +85,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    quantizer's int8 average of the same payloads, bit for bit, and the
    quantize and dequantize kernels must have launched for both replicas
    (the counts are set to 0 just before).
-11. The ``{"kernels": [...]}`` line, the card line, and the last line:
+11. DDP path: two replica groups of ``python -m torchft_tpu_torch.train_ddp
+   --model resnet50 --image-size 224 --num-classes 1000 --batch-size 32
+   --steps 8 --quantize`` on the card (ResNet-50 at its published ImageNet
+   widths, 25.56M parameters; int8 without error feedback, so the
+   gradients take the device quantize path); group 1 is SIGKILLed after
+   step 3 and restarted, heals params, Adam state and BatchNorm statistics
+   from group 0, and both must end at step 8 with equal ``param_sha256``,
+   finite losses and device ``cuda:0``; the BatchNorm statistics the
+   relaunched group's first committed step started from must equal group
+   0's at that step, bit for bit; the quantize and dequantize kernels must
+   launch in both groups and no flash kernel in either. Prints each
+   group's median step, images/s and phase split, and the drill's wall
+   time.
+12. The ``{"kernels": [...]}`` line, the card line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
@@ -837,11 +851,15 @@ QMAX = {8: 127.0, 4: 7.0}
 # The quantized path's bucket sizes on llama_small: embed.weight and
 # lm_head.weight each fill a bucket alone (24,576,000 values: one 16M-value
 # transfer chunk and a 7,798,784-value tail), a layer bucket, and a whole
-# 32 MiB bucket plus a ragged tail.
+# 32 MiB bucket plus a ragged tail. ResNet-50's gradients (the DDP drill)
+# fill four buckets, the first of 8,361,000 values (a ragged last block)
+# and the last of 1,048,576.
 QUANT_SIZES = {
     "embed/lm_head bucket, chunked": 24_576_000,
     "layer bucket": 7_867_392,
     "32 MiB + 333": 8_388_608 + 333,
+    "ResNet-50 first bucket": 8_361_000,
+    "ResNet-50 last bucket": 1_048_576,
 }
 TIMED_N = 8_388_608  # one 32 MiB fp32 bucket
 
@@ -1574,17 +1592,20 @@ def localsgd_phase() -> dict:
         if not torch.equal(p0, p1):
             raise AssertionError(f"localsgd: replicas differ in {name}")
     # The host quantizer's average of the same payloads: each rank's flat
-    # quantized and decoded, summed in rank order, requantized, decoded,
-    # halved (the wire's blocks are block-aligned, so its chunking changes
-    # no value). The kernels write the host quantizer's bytes.
+    # (its leaves in sorted name order, the wire's layout) quantized and
+    # decoded, summed in rank order, requantized, decoded, halved (the
+    # wire's blocks are block-aligned, so its chunking changes no value).
+    # The kernels write the host quantizer's bytes.
+    names = sorted(before[0])
     acc = np.zeros(n_values, np.float32)
     for b in before:
-        flat = torch.cat([t.reshape(-1) for t in b.values()]).cpu().numpy()
+        flat = torch.cat([b[n].reshape(-1) for n in names]).cpu().numpy()
         acc += dequantize_blockwise(*quantize_blockwise(flat, 8), n_values, 8)
     want = dequantize_blockwise(*quantize_blockwise(acc, 8), n_values, 8)
     want *= np.float32(0.5)
+    params0 = dict(models[0].named_parameters())
     got = torch.cat(
-        [p.detach().reshape(-1) for p in models[0].parameters()]
+        [params0[n].detach().reshape(-1) for n in names]
     ).cpu().numpy()
     differ = int((got.view(np.int32) != want.view(np.int32)).sum())
     if differ:
@@ -1598,6 +1619,85 @@ def localsgd_phase() -> dict:
           f"{sync_ms[0]:.1f} / {sync_ms[1]:.1f} ms, launches {launches}",
           flush=True)
     return {"launches": launches, "sync_ms": sync_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: fault-tolerant DDP on ResNet-50
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 8
+DDP_ARGS = [
+    "--model", "resnet50", "--image-size", "224", "--num-classes", "1000",
+    "--batch-size", "32", "--steps", str(DDP_STEPS), "--quantize",
+    "--device", "cuda",
+]
+
+
+def ddp_phase() -> dict:
+    """Phase 11: the kill/heal drill over ``train_ddp`` (ResNet-50, int8 on
+    the device path) on the card. Raises unless both groups end at step 8
+    with equal ``param_sha256``, finite losses and device ``cuda:0``, the
+    relaunched group's first committed step started from group 0's
+    BatchNorm statistics, bit for bit, and the quantize kernels (and no
+    flash kernel) launched in both groups. Returns {group: result JSON}
+    with the drill's wall time under ``"wall_s"``."""
+    import shutil
+
+    from torchft_tpu_torch.drill import kill_heal_drill
+
+    result_dir = OUT / "ddp"
+    shutil.rmtree(result_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    results = kill_heal_drill(
+        DDP_ARGS, str(result_dir), str(result_dir / "logs"),
+        kill_after_step=3, timeout_s=400.0,
+        trainer="torchft_tpu_torch.train_ddp", mark="[group 1] step={n} loss=",
+    )
+    wall = time.monotonic() - t0
+    healed = (result_dir / "logs" / "group1.log").read_text(errors="replace")
+    if "healing from replica_rank=0" not in healed.split("SIGKILLed")[-1]:
+        raise AssertionError("ddp: the restarted group 1 did not heal from group 0")
+    for g, r in results.items():
+        if r["final_step"] != DDP_STEPS:
+            raise AssertionError(f"ddp: group {g} ended at step {r['final_step']}")
+        if not r["losses"] or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"ddp: group {g} losses not finite: {r['losses']}")
+        if r["device"] != "cuda:0":
+            raise AssertionError(f"ddp: group {g} ran on {r['device']}")
+        for kernel in QUANT_KERNELS:
+            if r["kernel_launches"][kernel] <= 0:
+                raise AssertionError(f"ddp: group {g} never launched {kernel}")
+        for kernel in FLASH_KERNELS + BLOCK_KERNELS:
+            if r["kernel_launches"][kernel] != 0:
+                raise AssertionError(f"ddp: group {g} launched {kernel}")
+    if results[0]["param_sha256"] != results[1]["param_sha256"]:
+        raise AssertionError(
+            "ddp: groups disagree after kill + heal: "
+            f"{results[0]['param_sha256']} vs {results[1]['param_sha256']}"
+        )
+    # The param sha cannot see a heal that forgets the statistics (train
+    # mode never reads them), so hold the statistics themselves.
+    stats = [results[g]["batch_stats_sha"] for g in (0, 1)]
+    first = min(stats[1], key=int)
+    if stats[1][first] != stats[0].get(first):
+        raise AssertionError(
+            f"ddp: the relaunched group's first committed step {first} started "
+            "from other BatchNorm statistics than group 0's"
+        )
+    for g, r in results.items():
+        med = r["median_step_ms"]
+        print(
+            f"ddp group {g}: final_step {r['final_step']} committed_steps "
+            f"{r['committed_steps']} losses {[round(x, 4) for x in r['losses']]} "
+            f"launches {r['kernel_launches']} median step {med:.1f} ms "
+            f"({r['images_per_step'] / (med / 1e3):.1f} images/s) phases "
+            + json.dumps({k: round(v, 1) for k, v in r["median_phase_ms"].items()}),
+            flush=True,
+        )
+    print(f"ddp ok: param_sha256 equal {results[0]['param_sha256'][:16]}, "
+          f"BatchNorm statistics equal at the healed step {first}, drill wall "
+          f"{wall:.1f}s", flush=True)
+    return {"wall_s": wall, **results}
 
 
 def main() -> int:
@@ -1640,6 +1740,7 @@ def main() -> int:
         )
     diloco_phase()
     localsgd = localsgd_phase()
+    ddp = ddp_phase()
     for g in (0, 1):
         a, b, c = path[g], quantized[g], ring[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
@@ -1657,7 +1758,11 @@ def main() -> int:
                      else ring if name in BLOCK_KERNELS else path)
             launches = sum(r["kernel_launches"][name] for r in drill.values())
         if name in QUANT_KERNELS:
-            rec = {**rec, "localsgd_launches": localsgd["launches"][name]}
+            # The ResNet-50 DDP drill's launches go on the same rows.
+            ddp_launches = sum(ddp[g]["kernel_launches"][name] for g in (0, 1))
+            launches += ddp_launches
+            rec = {**rec, "localsgd_launches": localsgd["launches"][name],
+                   "ddp_launches": ddp_launches}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -15,6 +15,7 @@ meet on one control plane and one process-group wire.
 The harnesses are those of the port-only golden tests.
 """
 
+import functools
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -156,3 +157,131 @@ def test_mixed_manager_allreduce_equal_on_both_sides(monkeypatch, quantize, bits
             np.testing.assert_allclose(jax_out[step], exact, atol=0.5 if bits == 4 else 0.05)
         else:
             np.testing.assert_array_equal(jax_out[step], exact)
+
+
+# Keys deliberately out of sorted order and of equal sizes: JAX flattens a
+# dict in sorted key order, so a port that laid its leaves out in insertion
+# order would average one package's ``wq`` with the other's ``emb`` and no
+# length check would catch it.
+LEAF_KEYS = ("wq", "emb", "b")
+LEAF_N = 1536  # three quantizer blocks per leaf
+
+
+def _leaf_values(replica: int, step: int) -> dict:
+    rng = np.random.default_rng(1000 * replica + step)
+    return {k: rng.standard_normal(LEAF_N).astype(np.float32) for k in LEAF_KEYS}
+
+
+def _leaf_replica(package, replica, addr, barrier, kind, quantize):
+    """One replica of the leaf-order cases: ``kind`` "ddp" averages a
+    gradient dict through ``DistributedDataParallel.allreduce_grads``,
+    "pure" through ``PureDistributedDataParallel.allreduce_grads``,
+    "localsgd" a parameter dict through one ``LocalSGD`` sync. Returns the
+    averaged dict of each step as numpy, by key."""
+    if package == "jax":
+        from torchft_tpu import ddp
+        from torchft_tpu.local_sgd import LocalSGD
+        from torchft_tpu.manager import Manager
+        from torchft_tpu.process_group import ProcessGroupSocket
+
+        hold, host = (lambda a: a), np.asarray
+    else:
+        from torchft_tpu_torch import ddp
+        from torchft_tpu_torch.local_sgd import LocalSGD
+        from torchft_tpu_torch.manager import Manager
+        from torchft_tpu_torch.process_group import ProcessGroupSocket
+
+        hold, host = torch.from_numpy, (lambda t: t.numpy())
+    manager = Manager(
+        pg=ProcessGroupSocket(timeout=15.0),
+        min_replica_size=2,
+        use_async_quorum=False,
+        timeout=15.0,
+        quorum_timeout=30.0,
+        replica_id=f"leaves{replica}",
+        lighthouse_addr=addr,
+        group_rank=0,
+        group_world_size=1,
+        init_sync=False,
+    )
+    out = []
+    try:
+        if kind in ("ddp", "pure"):
+            if kind == "ddp":
+                average = functools.partial(
+                    ddp.DistributedDataParallel(manager).allreduce_grads,
+                    should_quantize=quantize,
+                )
+            else:
+                average = ddp.PureDistributedDataParallel(manager).allreduce_grads
+            for step in range(ALLREDUCE_STEPS):
+                barrier.wait(timeout=60)
+                manager.start_quorum()
+                grads = {k: hold(v) for k, v in _leaf_values(replica, step).items()}
+                reduced = average(grads)
+                assert list(reduced) == list(grads) or package == "jax"
+                assert manager.should_commit(), f"{package} step {step}"
+                out.append({k: np.array(host(reduced[k])) for k in LEAF_KEYS})
+        else:
+            params = [{k: hold(v) for k, v in _leaf_values(replica, 0).items()}]
+            local_sgd = LocalSGD(
+                manager, lambda: params[0], lambda p: params.__setitem__(0, p),
+                sync_every=1, should_quantize=quantize,
+            )
+            barrier.wait(timeout=60)
+            assert local_sgd.step(), f"{package} LocalSGD sync not committed"
+            assert package == "jax" or list(params[0]) == list(LEAF_KEYS)
+            out.append({k: np.array(host(params[0][k])) for k in LEAF_KEYS})
+    finally:
+        manager.shutdown()
+    return out
+
+
+def run_leaf_pair(kind: str, quantize: bool) -> None:
+    """Replica 0 on the JAX package, replica 1 on the port, through
+    :func:`_leaf_replica`; raises unless every key's average is the two
+    replicas' values of that key (exact in fp32; within the int8 wire's
+    error, equal on both sides) on both."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    lighthouse = LighthouseServer(
+        bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=10000,
+        quorum_tick_ms=20,
+    )
+    barrier = threading.Barrier(2)
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futs = [
+                pool.submit(
+                    _leaf_replica, package, r, lighthouse.address(), barrier,
+                    kind, quantize,
+                )
+                for r, package in enumerate(("jax", "torch"))
+            ]
+            jax_out, torch_out = [f.result(timeout=120) for f in futs]
+    finally:
+        lighthouse.shutdown()
+    assert len(jax_out) == len(torch_out) > 0
+    for step, (j, t) in enumerate(zip(jax_out, torch_out)):
+        a, b = _leaf_values(0, step), _leaf_values(1, step)
+        for k in LEAF_KEYS:
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+            exact = (a[k] + b[k]) / np.float32(2)
+            if quantize:
+                np.testing.assert_allclose(t[k], exact, atol=0.05, err_msg=k)
+            else:
+                np.testing.assert_array_equal(t[k], exact, err_msg=k)
+
+
+@pytest.mark.parametrize(
+    "kind, quantize",
+    [("ddp", False), ("ddp", True), ("localsgd", False), ("localsgd", True)],
+    ids=["ddp-fp32", "ddp-int8", "localsgd-fp32", "localsgd-int8"],
+)
+def test_mixed_multi_leaf_dict_averages_leaf_with_leaf(monkeypatch, kind, quantize):
+    """A multi-leaf dict whose keys are not in sorted order, one JAX and
+    one port replica (the port's quantized path on its device path): every
+    key is averaged with the same key of the other package, and the port
+    returns the caller's keys in the caller's order."""
+    monkeypatch.setenv("TORCHFT_FORCE_DEVICE_QUANT", "1")
+    run_leaf_pair(kind, quantize)

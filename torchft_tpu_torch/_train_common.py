@@ -1,6 +1,6 @@
-"""Helpers shared by the port's trainers (``train_hsdp``, ``train_diloco``):
-the flags not ported yet, the preemption-drain signal and the replica
-group's data seed. The port's
+"""Helpers shared by the port's trainers (``train_hsdp``, ``train_diloco``,
+``train_ddp``): the flags not ported yet, the device check, the
+preemption-drain signal and the replica group's data seed. The port's
 copies of the repo root ``_train_common.py``'s ``drain_signal`` and
 ``group_data_seed``; the JAX trainers' CPU pinning, durable regime and perf
 helpers are not ported (ROADMAP.md queue 1)."""
@@ -18,6 +18,24 @@ UNPORTED = {
     "pipeline": "queue 1: parallel/pipeline",
     "ulysses": "queue 1: parallel/ulysses",
 }
+
+
+def trainer_device(name: str, prog: str):
+    """``torch.device(name)``, a CUDA one with its index resolved. Exits
+    naming ``--device cpu`` when ``name`` is CUDA and no card is visible:
+    the trainers never fall back to the CPU on their own."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(
+                f"{prog}: no CUDA device visible; pass --device cpu to run "
+                "on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def drain_signal(enabled: bool = True, on_signal=None):

@@ -85,7 +85,10 @@ class DistributedDataParallel:
                 f"error-feedback width {self._quantize_bits} pinned at "
                 "construction; pass the width once, in the ctor"
             )
-        names = list(grads)
+        # The wire layout takes the names sorted, as the JAX package's
+        # ``tree_flatten`` takes a dict's keys, so a port replica and a JAX
+        # replica fill the same buckets with the same leaves.
+        names = sorted(grads)
         leaves = [grads[n].detach() for n in names]
         buckets = self._bucketize(leaves)
         if should_quantize and not self._error_feedback and takes_device_path(
@@ -106,7 +109,7 @@ class DistributedDataParallel:
             for work, idx_list in works:
                 for i, reduced in zip(idx_list, work.wait()):
                     out[names[i]] = reduced
-            return {n: out[n] for n in names}
+            return {n: out[n] for n in grads}
         flats = [
             torch.cat([leaves[i].reshape(-1) for i in idx_list])
             for idx_list in buckets
@@ -162,9 +165,25 @@ class DistributedDataParallel:
                     leaves[i].shape
                 )
                 offset += n
-        return {n: out[n] for n in names}
+        return {n: out[n] for n in grads}
 
     def _bucketize(self, tensors: List[torch.Tensor]) -> List[List[int]]:
         from torchft_tpu_torch.collectives import bucketize
 
         return bucketize(tensors, self._bucket_cap)
+
+
+class PureDistributedDataParallel:
+    """One allreduce per gradient leaf, no buckets (reference:
+    ``torchft/ddp.py:82-105``): the naive variant, for debugging numerics.
+    The leaves go in sorted name order, as the JAX package's
+    ``PureDistributedDataParallel`` flattens them."""
+
+    def __init__(self, manager: Manager) -> None:
+        self._manager = manager
+
+    def allreduce_grads(self, grads: Grads) -> Grads:
+        works = {
+            n: self._manager.allreduce(grads[n].detach()) for n in sorted(grads)
+        }
+        return {n: works[n].wait()[0] for n in grads}

@@ -1,6 +1,6 @@
-"""Kill-and-heal drill: two replica groups of a trainer (``train_hsdp`` or
-``train_diloco``) against one lighthouse; one group is SIGKILLed mid-run,
-restarted, heals from the survivor, and both finish
+"""Kill-and-heal drill: two replica groups of a trainer (``train_hsdp``,
+``train_diloco`` or ``train_ddp``) against one lighthouse; one group is
+SIGKILLed mid-run, restarted, heals from the survivor, and both finish
 (:func:`kill_heal_drill`; driven by ``chip_smoke.py`` on the card and by the
 CPU integration tests)."""
 
@@ -61,8 +61,9 @@ def kill_heal_drill(
     """Runs groups 0 and 1 of ``python -m <trainer> <trainer_args>
     --min-replicas 2 --result-dir <result_dir>``; once group 1's log shows
     ``mark`` formatted with ``n=kill_after_step`` (its progress line for
-    that committed step; ``train_diloco``'s is ``"outer_step={n} loss"``) it
-    is SIGKILLed and restarted at once. Returns {group: result JSON}; raises
+    that step; ``train_diloco``'s is ``"outer_step={n} loss"`` and
+    ``train_ddp``'s ``"[group 1] step={n} loss="``) it is SIGKILLed and
+    restarted at once. Returns {group: result JSON}; raises
     if a group fails or the drill outlasts ``timeout_s``. Every process it
     starts is stopped before it returns."""
     from torchft_tpu_torch.coordination import LighthouseServer

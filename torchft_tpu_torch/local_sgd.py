@@ -198,7 +198,9 @@ class LocalSGD:
             )
         manager.start_quorum()
         params = self._get()
-        names = list(params)
+        # Sorted names: the JAX package flattens the dict in key order, so
+        # both packages put the same leaf at the same place on the wire.
+        names = sorted(params)
         # The tensors go to the manager AS THEY ARE: Manager.allreduce
         # sends quantized CUDA tensors down its device path (the quantize
         # kernels before the device->host pull) and hosts everything else.
@@ -212,7 +214,8 @@ class LocalSGD:
         # bumped step with pre-merge params.
         with manager.fenced_state_dict():
             if manager.should_commit():
-                self._set(dict(zip(names, averaged)))
+                averaged = dict(zip(names, averaged))
+                self._set({n: averaged[n] for n in params})
                 return True
         return False
 

@@ -44,7 +44,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torchft_tpu_torch._train_common import UNPORTED, drain_signal, group_data_seed
+from torchft_tpu_torch._train_common import (
+    UNPORTED,
+    drain_signal,
+    group_data_seed,
+    trainer_device,
+)
 
 
 def _parse(argv=None) -> argparse.Namespace:
@@ -102,19 +107,6 @@ def _parse(argv=None) -> argparse.Namespace:
             f"(ROADMAP.md {UNPORTED['durable_dir']})"
         )
     return args
-
-
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(
-                "train_diloco: no CUDA device visible; pass --device cpu to "
-                "run on the CPU"
-            )
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def inner_optimizer(
@@ -199,7 +191,7 @@ def main(argv=None) -> int:
     from torchft_tpu_torch.ops import flash_attention, quantization
     from torchft_tpu_torch.process_group import make_process_group
 
-    device = _device(args.device)
+    device = trainer_device(args.device, "train_diloco")
     cfg = llama_debug()
     torch.manual_seed(0)  # same initial weights in every group
     model = Transformer(cfg).to(device)

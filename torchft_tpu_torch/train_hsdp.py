@@ -45,7 +45,7 @@ import statistics
 import sys
 import time
 
-from torchft_tpu_torch._train_common import UNPORTED, drain_signal
+from torchft_tpu_torch._train_common import UNPORTED, drain_signal, trainer_device
 
 
 def _parse(argv=None) -> argparse.Namespace:
@@ -101,18 +101,6 @@ def _parse(argv=None) -> argparse.Namespace:
     return args
 
 
-def _device(name: str):
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            "train_hsdp: no CUDA device visible; pass --device cpu to run "
-            "on the CPU"
-        )
-    return device
-
-
 def main(argv=None) -> int:
     args = _parse(argv)
     logging.basicConfig(level=logging.INFO)
@@ -137,7 +125,7 @@ def main(argv=None) -> int:
     )
     from torchft_tpu_torch.process_group import make_process_group
 
-    device = _device(args.device)
+    device = trainer_device(args.device, "train_hsdp")
     group = os.environ.get("REPLICA_GROUP_ID", "0")
     mesh = auto_mesh(1, devices=[device])  # one device per replica group
     B, S = args.batch, args.seq

@@ -98,8 +98,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launch in both groups and no flash kernel in either. Prints each
    group's median step, images/s and phase split, and the drill's wall
    time.
-12. The ``{"kernels": [...]}`` line, the card line, and the last line:
-   ``{"ok": true, "device": {...}}``.
+12. Ulysses: ``make_ulysses_attention`` at sp=4 on a mesh that repeats the
+   card (B=2, S=4096, llama_small's heads: 3 q heads and 1 kv head a rank)
+   against the plain full-sequence versions within the ring limit, one
+   launch of each flash kernel a rank; then the llama_small drill with
+   ``--attn ulysses`` (sp=1: each layer one whole-sequence attention): the
+   flash kernels must launch in both groups, the block kernels never, and
+   it must end in the flash drill's parameters (the same kernels on the
+   same inputs).
+13. MoE path: the drill with ``--model moe --batch 8 --seq 64 --steps 8
+   --quantize --quantize-bits 4`` (llama_moe_debug, 4 experts, top-2, the
+   router's aux loss; the JAX package's model-heal drill's int4 wire): both
+   must end at step 8 with equal parameters, both quantize kernels launched
+   in both groups and no attention kernel, and a nonzero router gradient.
+14. GPipe: the pipeline loss and gradients at pp=2 on a mesh that repeats
+   the card against pp=1 on the same weights and batch (llama_debug with 4
+   layers, fp32, 2 microbatches) within ``PIPELINE_TOL``; then the drill
+   with ``--model pipeline`` and phase 13's other arguments, held as
+   phase 13's.
+15. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses
+   drill's launches too, the quantize rows the DDP, MoE and GPipe drills'),
+   the card line, and the last line: ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
 or of the JAX package.
@@ -767,16 +786,16 @@ def ring_term_sums(q, k, v, dout, lse, delta, sp: int) -> dict:
     return terms
 
 
-def check_ring(B, S, Hq, Hkv, D, sp, device, seed):
-    """``make_ring_attention`` on a mesh that repeats ``device`` sp times,
-    bf16, out and the gradients of <out, dO> against the plain
-    full-sequence versions; returns the block kernels' launches in the
-    ring's forward and backward and each output's reading against the ring
-    limit."""
+def check_sequence_parallel(make_attn, B, S, Hq, Hkv, D, sp, device, seed):
+    """The context-parallel attention ``make_attn(mesh)`` builds
+    (``make_ring_attention`` or ``make_ulysses_attention``) over an ``sp``
+    mesh of ``device`` repeated, bf16: out, dq, dk and dv against the plain
+    full-sequence versions, each output's reading against the ring limit,
+    and the kernel launches of its forward and backward."""
     import torch
 
     from torchft_tpu_torch.ops import flash_attention as fa
-    from torchft_tpu_torch.parallel import make_mesh, make_ring_attention
+    from torchft_tpu_torch.parallel import make_mesh
 
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -784,11 +803,11 @@ def check_ring(B, S, Hq, Hkv, D, sp, device, seed):
         *shape, generator=g, device=dev
     ).to(torch.bfloat16)
     q, k, v, dout = mk(B, S, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D), mk(B, S, Hq, D)
-    ring = make_ring_attention(make_mesh(sp=sp, devices=[dev] * sp))
+    attn = make_attn(make_mesh(sp=sp, devices=[dev] * sp))
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
-    out = ring(qg, kg, vg)
+    out = attn(qg, kg, vg)
     out.backward(dout)
     launches = dict(fa.LAUNCHES)
     out_r, lse_r = fa.flash_attention_fwd_reference(q, k, v)
@@ -822,7 +841,11 @@ def block_phase() -> dict:
     check_block_case(1, 200, 328, 4, 2, 32, fp32, 300, 100, timed=False, seed=21)
 
     sp = 4
-    ring = check_ring(2, 4096, 12, 4, 64, sp, "cuda", seed=22)
+    from torchft_tpu_torch.parallel import make_ring_attention
+
+    ring = check_sequence_parallel(
+        make_ring_attention, 2, 4096, 12, 4, 64, sp, "cuda", seed=22
+    )
     for name in BLOCK_KERNELS:
         if ring["launches"][name] != sp * sp:
             raise AssertionError(
@@ -843,6 +866,40 @@ def block_phase() -> dict:
     return main
 
 
+def ulysses_check() -> dict:
+    """Phase 12's kernel check: ``make_ulysses_attention`` at sp=4 on a mesh
+    that repeats the card (B=2, S=4096, llama_small's heads: 3 q heads and
+    1 kv head a rank), against the plain full-sequence versions within the
+    ring limit, one launch of each flash kernel a rank."""
+    sp = 4
+    from torchft_tpu_torch.parallel import make_ulysses_attention
+
+    rec = check_sequence_parallel(
+        make_ulysses_attention, 2, 4096, 12, 4, 64, sp, "cuda", seed=23
+    )
+    for name in FLASH_KERNELS:
+        if rec["launches"][name] != sp:
+            raise AssertionError(
+                f"ulysses: {name} launched {rec['launches'][name]} times, "
+                f"want {sp}: {rec['launches']}"
+            )
+    for name in BLOCK_KERNELS:
+        if rec["launches"][name]:
+            raise AssertionError(f"ulysses: launched {name}: {rec['launches']}")
+    for name, r in rec["outputs"].items():
+        if not r["share"] <= 1.0:
+            raise AssertionError(
+                f"ulysses sp={sp} {name} reaches {r['share']:.3g}x of the ring "
+                f"limit (max abs err {r['max_abs_err']}, rms {r['ref_rms']})"
+            )
+    print(f"ulysses ok: sp={sp} B=2 S=4096 bf16, launches "
+          f"{ {n: rec['launches'][n] for n in FLASH_KERNELS} }, " + ", ".join(
+              f"{n} err {r['max_abs_err']:.3g} share {r['share']:.3g}"
+              for n, r in rec["outputs"].items()
+          ), flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the quantize kernels against their plain versions and the wire
 # ---------------------------------------------------------------------------
@@ -853,13 +910,17 @@ QMAX = {8: 127.0, 4: 7.0}
 # transfer chunk and a 7,798,784-value tail), a layer bucket, and a whole
 # 32 MiB bucket plus a ragged tail. ResNet-50's gradients (the DDP drill)
 # fill four buckets, the first of 8,361,000 values (a ragged last block)
-# and the last of 1,048,576.
+# and the last of 1,048,576. The MoE and GPipe drills' int4 wire sends
+# each model's gradients in one bucket, each with a ragged last block:
+# 254,784 values (llama_moe_debug) and 180,800 (llama_debug, 4 layers).
 QUANT_SIZES = {
     "embed/lm_head bucket, chunked": 24_576_000,
     "layer bucket": 7_867_392,
     "32 MiB + 333": 8_388_608 + 333,
     "ResNet-50 first bucket": 8_361_000,
     "ResNet-50 last bucket": 1_048_576,
+    "MoE bucket (llama_moe_debug)": 254_784,
+    "GPipe bucket (llama_debug, 4 layers)": 180_800,
 }
 TIMED_N = 8_388_608  # one 32 MiB fp32 bucket
 
@@ -1370,6 +1431,15 @@ PATH_ARGS = [
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 QUANT_KERNELS = ("quantize", "dequantize")
 RING_ARGS = [a if a != "flash" else "ring" for a in PATH_ARGS]
+ULYSSES_ARGS = [a if a != "flash" else "ulysses" for a in PATH_ARGS]
+# The JAX package's model-heal drill's wire (tools/drills.py) at the sizes
+# its trainer runs these models on one chip.
+SMALL_FAMILY_ARGS = [
+    "--batch", "8", "--seq", "64", "--steps", "8", "--quantize",
+    "--quantize-bits", "4", "--device", "cuda",
+]
+MOE_ARGS = ["--model", "moe", *SMALL_FAMILY_ARGS]
+PIPELINE_ARGS = ["--model", "pipeline", *SMALL_FAMILY_ARGS]
 
 
 def path_phase(name: str, args, kernels, absent=()) -> dict:
@@ -1700,6 +1770,59 @@ def ddp_phase() -> dict:
     return {"wall_s": wall, **results}
 
 
+# ---------------------------------------------------------------------------
+# Phases 12 to 14: Ulysses attention, MoE and GPipe through train_hsdp
+# ---------------------------------------------------------------------------
+
+PIPELINE_TOL = 1e-5
+
+
+def pipeline_check(device: str = "cuda") -> dict:
+    """Phase 14's check: the GPipe loss and gradients at pp=2 on a mesh
+    that repeats the card against pp=1, on the same weights and batch
+    (the pipeline drill's model, llama_debug with 4 layers, in fp32; B=8,
+    S=64, 2 microbatches). Raises unless the loss and every gradient agree
+    within ``PIPELINE_TOL`` of their largest value."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import Transformer, llama_debug
+    from torchft_tpu_torch.parallel import make_mesh, pipeline_grad_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = dataclasses.replace(
+        llama_debug(num_layers=4), dtype=torch.float32, remat=False
+    )
+    torch.manual_seed(0)
+    model = Transformer(cfg).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    inputs = torch.randint(0, cfg.vocab_size, (8, 64), generator=g, device=dev)
+    batch = {"inputs": inputs, "targets": torch.roll(inputs, -1, 1),
+             "mask": torch.ones_like(inputs)}
+    runs = {}
+    for pp in (1, 2):
+        mesh = make_mesh(pp=pp, devices=[dev] * pp)
+        loss, grads = pipeline_grad_step(model, batch, mesh, n_micro=2)
+        runs[pp] = (float(loss), {k: v.clone() for k, v in grads.items()})
+    (l1, g1), (l2, g2) = runs[1], runs[2]
+    worst = max(
+        float((g2[k] - g1[k]).abs().max()) / max(float(g1[k].abs().max()), 1e-30)
+        for k in g1
+    )
+    if not (math.isfinite(l1) and abs(l2 - l1) <= PIPELINE_TOL * abs(l1)
+            and worst <= PIPELINE_TOL):
+        raise AssertionError(
+            f"pipeline pp=2 vs pp=1: loss {l2} vs {l1}, worst gradient "
+            f"error {worst:.3g} of its largest value"
+        )
+    print(f"pipeline ok: pp=2 vs pp=1 fp32 loss {l2:.6f} vs {l1:.6f}, worst "
+          f"gradient error {worst:.3g} of its largest value ({len(g1)} leaves)",
+          flush=True)
+    return {"loss": (l1, l2), "worst_grad_rel": worst}
+
+
 def main() -> int:
     import torch
 
@@ -1741,12 +1864,37 @@ def main() -> int:
     diloco_phase()
     localsgd = localsgd_phase()
     ddp = ddp_phase()
+    ulysses_check()
+    ulysses = path_phase(
+        "ulysses path", ULYSSES_ARGS, FLASH_KERNELS, absent=BLOCK_KERNELS
+    )
+    if ulysses[0]["param_sha256"] != path[0]["param_sha256"]:
+        raise AssertionError(
+            "the Ulysses drill (sp=1) ended in other parameters than the flash "
+            f"drill ({ulysses[0]['param_sha256']} vs {path[0]['param_sha256']}): "
+            "at sp=1 both run the whole-sequence kernels on the same inputs"
+        )
+    # The small families' drills run the int4 device wire and dense
+    # attention (S=64): the quantize kernels, no attention kernel.
+    moe = path_phase(
+        "moe path", MOE_ARGS, QUANT_KERNELS, absent=FLASH_KERNELS + BLOCK_KERNELS
+    )
+    for g, r in moe.items():
+        if not r["router_grad_l1"] > 0:
+            raise AssertionError(f"moe path: group {g} router gradient {r['router_grad_l1']}")
+    pipeline_check()
+    pipeline = path_phase(
+        "pipeline path", PIPELINE_ARGS, QUANT_KERNELS,
+        absent=FLASH_KERNELS + BLOCK_KERNELS,
+    )
     for g in (0, 1):
-        a, b, c = path[g], quantized[g], ring[g]
+        a, b, c, d = path[g], quantized[g], ring[g], ulysses[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
               f"{json.dumps(a['median_phase_ms'])}, int8 {b['median_step_ms']:.1f} ms "
               f"{json.dumps(b['median_phase_ms'])}, ring {c['median_step_ms']:.1f} ms "
-              f"{json.dumps(c['median_phase_ms'])}", flush=True)
+              f"{json.dumps(c['median_phase_ms'])}, ulysses "
+              f"{d['median_step_ms']:.1f} ms {json.dumps(d['median_phase_ms'])}",
+              flush=True)
 
     kernels = []
     for name, rec in records.items():
@@ -1758,11 +1906,21 @@ def main() -> int:
                      else ring if name in BLOCK_KERNELS else path)
             launches = sum(r["kernel_launches"][name] for r in drill.values())
         if name in QUANT_KERNELS:
-            # The ResNet-50 DDP drill's launches go on the same rows.
-            ddp_launches = sum(ddp[g]["kernel_launches"][name] for g in (0, 1))
-            launches += ddp_launches
-            rec = {**rec, "localsgd_launches": localsgd["launches"][name],
-                   "ddp_launches": ddp_launches}
+            # The ResNet-50 DDP, MoE and GPipe drills' launches go on the
+            # same rows.
+            more = {
+                f"{drill}_launches": sum(
+                    runs[g]["kernel_launches"][name] for g in (0, 1)
+                )
+                for drill, runs in (("ddp", ddp), ("moe", moe), ("pipeline", pipeline))
+            }
+            launches += sum(more.values())
+            rec = {**rec, "localsgd_launches": localsgd["launches"][name], **more}
+        if name in FLASH_KERNELS:
+            # The Ulysses drill runs the whole-sequence kernels too.
+            ulysses_launches = sum(ulysses[g]["kernel_launches"][name] for g in (0, 1))
+            launches += ulysses_launches
+            rec = {**rec, "ulysses_launches": ulysses_launches}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -49,6 +49,26 @@ def test_diloco_two_groups_kill_heal_global_state_equal(tmp_path):
     assert results[0]["global_sha"] == results[1]["global_sha"], results
 
 
+def test_groups_draw_different_batches_on_the_cpu():
+    """The group's data seed and the inner step are mixed into 32 bits
+    before they seed the generator: the CPU generator keeps only a seed's
+    low 32 bits, so a seed with the group in the high bits handed every
+    group the same batches on the CPU. A relaunched group replays its own
+    stream."""
+    import torch
+
+    from torchft_tpu_torch._train_common import group_data_seed
+    from torchft_tpu_torch.train_diloco import inner_tokens
+
+    cpu = torch.device("cpu")
+    draw = lambda g, inner: inner_tokens(  # noqa: E731
+        (group_data_seed(g), inner), 4, 64, 256, cpu
+    )
+    assert not torch.equal(draw("0", 0), draw("1", 0))
+    assert not torch.equal(draw("0", 0), draw("0", 1))
+    assert torch.equal(draw("1", 3), draw("1", 3))
+
+
 def _run(*flags):
     return subprocess.run(
         [sys.executable, "-m", "torchft_tpu_torch.train_diloco", *flags],

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torchft_tpu_torch.parallel import make_ring_attention
 
 
 @pytest.mark.gpu
@@ -60,7 +61,9 @@ def test_ring_sp4_on_repeated_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    rec = chip_smoke.check_ring(1, 2048, 12, 4, 64, 4, "cuda", seed=3)
+    rec = chip_smoke.check_sequence_parallel(
+        make_ring_attention, 1, 2048, 12, 4, 64, 4, "cuda", seed=3
+    )
     for name in chip_smoke.BLOCK_KERNELS:
         assert rec["launches"][name] == 16, rec["launches"]
     assert all(r["share"] <= 1.0 for r in rec["outputs"].values()), rec

@@ -180,7 +180,14 @@ def test_flash_routing_follows_min_seq(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(llama_debug(num_experts=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """MoE and Ulysses are ported (tests/test_torch_moe.py,
+    tests/test_torch_ulysses.py); what the model still refuses: Ulysses
+    without the attention a mesh binds, an unknown attention, and more
+    experts a token than experts."""
+    with pytest.raises(ValueError, match="attn_fn"):
         Transformer(llama_debug(attn_impl="ulysses"))
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        Transformer(llama_debug(attn_impl="paged"))
+    with pytest.raises(ValueError, match=r"num_experts_per_tok \(4\) > num_experts \(2\)"):
+        Transformer(llama_debug(num_experts=2, num_experts_per_tok=4))
+    assert Transformer(llama_debug(num_experts=4)).layers[0].mlp.experts_up.shape == (4, 64, 128)

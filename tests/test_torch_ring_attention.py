@@ -288,13 +288,15 @@ def test_llama_ring_sp2_logits_and_every_grad_leaf_match_jax(jax_params, monkeyp
         assert _rel(got[path], leaf) < 1e-4, jax.tree_util.keystr(path)
 
 
-def test_ring_model_needs_a_mesh_and_ulysses_stays_unported():
+def test_ring_and_ulysses_models_need_a_mesh():
     with pytest.raises(ValueError, match="mesh"):
         build_model(llama_debug(attn_impl="ring"))
     with pytest.raises(ValueError, match="attn_fn"):
         Transformer(llama_debug(attn_impl="ring"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: parallel/ulysses"):
-        build_model(llama_debug(attn_impl="ulysses"), make_mesh(devices=[CPU]))
+    with pytest.raises(ValueError, match="ulysses attention requires a mesh"):
+        build_model(llama_debug(attn_impl="ulysses"))
+    with pytest.raises(ValueError, match="attn_fn"):
+        Transformer(llama_debug(attn_impl="ulysses"))
 
 
 def test_ring_model_at_sp1_equals_dense_model():
@@ -366,7 +368,7 @@ def test_chip_smoke_ring_check_holds_in_bf16_on_cpu():
     """The sp=4 bf16 ring (the block plain versions, which round P where
     the kernels do not) against the full-sequence plain versions, within
     chip_smoke.py's derived ring limit."""
-    rec = chip_smoke.check_ring(
-        B=1, S=1024, Hq=4, Hkv=2, D=32, sp=4, device=CPU, seed=0
+    rec = chip_smoke.check_sequence_parallel(
+        make_ring_attention, B=1, S=1024, Hq=4, Hkv=2, D=32, sp=4, device=CPU, seed=0
     )
     assert all(r["share"] <= 1.0 for r in rec["outputs"].values()), rec

@@ -14,9 +14,6 @@ import zlib
 UNPORTED = {
     "pg-sharded": "queue 1: checkpointing/pg_transport + sharded",
     "durable_dir": "queue 1: checkpointing/durable",
-    "moe": "queue 1: MoE / expert parallelism",
-    "pipeline": "queue 1: parallel/pipeline",
-    "ulysses": "queue 1: parallel/ulysses",
 }
 
 

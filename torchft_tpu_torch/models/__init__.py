@@ -6,6 +6,7 @@ from torchft_tpu_torch.models.llama import (  # noqa: F401
     Transformer,
     llama3_8b,
     llama_debug,
+    llama_moe_debug,
     llama_small,
 )
 from torchft_tpu_torch.models.resnet import (  # noqa: F401

@@ -16,7 +16,7 @@ both packages compute the same function.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,10 +43,11 @@ class LlamaConfig:
     tie_embeddings: bool = False
     # Recompute each block in the backward pass (torch.utils.checkpoint).
     remat: bool = True
-    # 'dense' | 'flash' | 'ring'. flash = the hand-written CUDA kernels
-    # (ops/flash_attention.py), dense for lengths the flash gate refuses;
-    # ring shards the sequence over the mesh's 'sp' axis (attn_fn).
-    # 'ulysses' is not ported yet (ROADMAP.md, parallel/ulysses).
+    # 'dense' | 'flash' | 'ring' | 'ulysses'. flash = the hand-written CUDA
+    # kernels (ops/flash_attention.py), dense for lengths the flash gate
+    # refuses; ring (k/v streaming) and ulysses (all-to-all between
+    # sequence and heads) shard the sequence over the mesh's 'sp' axis
+    # (attn_fn).
     attn_impl: str = "dense"
     # Below this sequence length the 'flash' impl routes to dense.
     flash_min_seq: int = 2048
@@ -54,9 +55,21 @@ class LlamaConfig:
     # kernel's own.
     flash_block_q: int = 512
     flash_block_k: int = 512
-    # Mixture of experts is not ported yet (ROADMAP.md, MoE); must stay 0.
+    # Mixture of experts: num_experts == 0 -> dense MLP, else MoEMLP (top-k
+    # routing, dense one-hot dispatch and combine). Experts are not sharded:
+    # an 'ep' axis above 1 is a placement that waits for the sharding item
+    # (ROADMAP.md queue 1: parallel/sharding.py + FSDP2).
     num_experts: int = 0
-    # Bound by parallel.train.build_model when attn_impl is 'ring'.
+    num_experts_per_tok: int = 2
+    # Per-sequence expert buffer = capacity_factor * S * k / E tokens;
+    # overflow tokens pass through the residual only (GShard drop).
+    expert_capacity_factor: float = 1.25
+    # Switch/GShard load-balancing aux loss coefficient: the train loss adds
+    # coef * the mean over layers of each MoEMLP's aux term
+    # (parallel/train.py:_loss_fn).
+    router_aux_coef: float = 0.01
+    # Bound by parallel.train.build_model when attn_impl is 'ring' or
+    # 'ulysses'.
     attn_fn: Optional[Callable[..., torch.Tensor]] = None
 
     @property
@@ -80,6 +93,12 @@ def llama_small(**overrides: Any) -> LlamaConfig:
         head_dim=64,
         max_seq_len=2048,
     )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def llama_moe_debug(**overrides: Any) -> LlamaConfig:
+    """Tiny MoE config (4 experts, top-2) for tests and the MoE drill."""
+    cfg = llama_debug(num_experts=4, num_experts_per_tok=2)
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -157,15 +176,12 @@ class RMSNorm(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
-        if cfg.attn_impl not in ("dense", "flash", "ring"):
-            raise NotImplementedError(
-                f"attn_impl={cfg.attn_impl!r} is not ported yet "
-                "(ROADMAP.md queue 1: parallel/ulysses)"
-            )
-        if cfg.attn_impl == "ring" and cfg.attn_fn is None:
+        if cfg.attn_impl not in ("dense", "flash", "ring", "ulysses"):
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+        if cfg.attn_impl in ("ring", "ulysses") and cfg.attn_fn is None:
             raise ValueError(
-                "ring attention needs cfg.attn_fn: build the model with "
-                "parallel.train.build_model(cfg, mesh)"
+                f"{cfg.attn_impl} attention needs cfg.attn_fn: build the "
+                "model with parallel.train.build_model(cfg, mesh)"
             )
         self.cfg = cfg
         H, Dh = cfg.hidden_size, cfg.head_dim
@@ -183,7 +199,7 @@ class Attention(nn.Module):
         v = heads(_linear(x, self.wv.weight, cfg.dtype), cfg.num_kv_heads)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if cfg.attn_impl == "ring":
+        if cfg.attn_impl in ("ring", "ulysses"):
             out = cfg.attn_fn(q, k, v)
         elif (
             cfg.attn_impl == "flash"
@@ -216,18 +232,96 @@ class MLP(nn.Module):
         return _linear(F.silu(gate) * up, self.down.weight, dt)
 
 
+def _lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two deviations, scaled
+    so its variance is 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest values in
+    descending order, and their indices, a tie going to the lower index
+    (``torch.topk`` promises no order among ties; a stable descending sort
+    keeps equal values in index order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class MoEMLP(nn.Module):
+    """Mixture-of-experts MLP: top-k routing with GShard-style dense
+    dispatch, the twin of the JAX package's ``MoEMLP``.
+
+    The router runs in fp32 on fp32 input. Each expert takes at most
+    ``C = max(int(capacity_factor * S * K / E), 1)`` tokens per sequence;
+    the k-th choices queue after every (k-1)-th choice, tokens in sequence
+    order, and a token beyond its expert's capacity passes through the
+    residual only. Dispatch and combine are one-hot ``[B,S,E,C]`` einsums in
+    ``cfg.dtype``, with no scatter: atomics would change the bits from run
+    to run. ``forward`` keeps the layer's Switch load-balancing term in
+    ``self.aux`` (``E * sum_e f_e * p_e``), which the JAX model sows."""
+
+    def __init__(self, cfg: LlamaConfig) -> None:
+        super().__init__()
+        E, K = cfg.num_experts, cfg.num_experts_per_tok
+        if K > E:
+            raise ValueError(f"num_experts_per_tok ({K}) > num_experts ({E})")
+        self.cfg = cfg
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.router = nn.Linear(H, E, bias=False)
+        # [E, in, out], as flax keeps them; lecun_normal's fan_in on a 3-D
+        # shape counts the leading expert dim: in * E.
+        self.experts_gate = nn.Parameter(_lecun_normal_(torch.empty(E, H, I), H * E))
+        self.experts_up = nn.Parameter(_lecun_normal_(torch.empty(E, H, I), H * E))
+        self.experts_down = nn.Parameter(_lecun_normal_(torch.empty(E, I, H), I * E))
+        self.aux: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        E, K = cfg.num_experts, cfg.num_experts_per_tok
+        B, S, _ = x.shape
+        C = max(int(cfg.expert_capacity_factor * S * K / E), 1)
+        f32 = torch.float32
+
+        probs = torch.softmax(F.linear(x.float(), self.router.weight.float()), dim=-1)
+        gate_vals, gate_idx = top_k_lower_index(probs, K)  # [B,S,K]
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+        top1 = F.one_hot(gate_idx[..., 0], E).to(f32)
+        self.aux = E * torch.sum(top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+
+        counts = x.new_zeros((B, E), dtype=f32)
+        dispatch = x.new_zeros((B, S, E, C), dtype=f32)
+        combine = x.new_zeros((B, S, E, C), dtype=f32)
+        for k in range(K):
+            mk = F.one_hot(gate_idx[..., k], E).to(f32)
+            pos = counts[:, None, :] + torch.cumsum(mk, dim=1) - mk  # [B,S,E]
+            keep = mk * (pos < C)
+            counts = counts + keep.sum(dim=1)
+            pos_tok = (pos * keep).sum(-1).long()  # [B,S]
+            slot = F.one_hot(pos_tok, C).to(f32)  # [B,S,C]
+            disp_k = keep[..., None] * slot[:, :, None, :]  # [B,S,E,C]
+            dispatch = dispatch + disp_k
+            combine = combine + disp_k * gate_vals[..., k][..., None, None]
+
+        dt = cfg.dtype
+        xe = torch.einsum("bsec,bsh->bech", dispatch.to(dt), x.to(dt))
+        hidden = F.silu(
+            torch.einsum("bech,ehi->beci", xe, self.experts_gate.to(dt))
+        ) * torch.einsum("bech,ehi->beci", xe, self.experts_up.to(dt))
+        ye = torch.einsum("beci,eih->bech", hidden, self.experts_down.to(dt))
+        out = torch.einsum("bsec,bech->bsh", combine.to(dt), ye)
+        return out.to(x.dtype)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "num_experts > 0 (MoE) is not ported yet (ROADMAP.md queue 1: "
-                "MoE / expert parallelism)"
-            )
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps)
         self.attn = Attention(cfg)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps)
-        self.mlp = MLP(cfg)
+        self.mlp = MoEMLP(cfg) if cfg.num_experts > 0 else MLP(cfg)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.attn_norm(x), cos, sin)
@@ -250,6 +344,22 @@ class Transformer(nn.Module):
             if cfg.tie_embeddings
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
         )
+
+    def router_aux(self) -> Optional[torch.Tensor]:
+        """The mean over layers of the MoE layers' load-balancing terms from
+        the last forward (what the JAX model sows as ``router_aux``); None
+        for a dense model."""
+        if self.cfg.num_experts <= 0:
+            return None
+        return torch.stack([block.mlp.aux for block in self.layers]).mean()
+
+    def router_names(self) -> List[str]:
+        """The MoE routers' weight names in layer order; empty for a dense
+        model."""
+        return [
+            f"{name}.router.weight"
+            for name, m in self.named_modules() if isinstance(m, MoEMLP)
+        ]
 
     def head_weight(self) -> torch.Tensor:
         """The vocab projection [V, H] (the tied embedding or lm_head)."""
@@ -288,7 +398,7 @@ class Transformer(nn.Module):
 _DENSE = "dense"  # flax kernel [in, out] -> torch weight [out, in]
 _QKV = "qkv"  # flax [H, heads, Dh] -> torch [heads*Dh, H]
 _OUT = "out"  # flax [heads, Dh, H] -> torch [H, heads*Dh]
-_VEC = "vec"
+_VEC = "vec"  # carried as it is (norm scales; experts [E, in, out])
 _BLOCK_PARAMS = (
     ("attn_norm.scale", ("attn_norm", "scale"), _VEC),
     ("attn.wq.weight", ("attn", "wq", "kernel"), _QKV),
@@ -296,10 +406,22 @@ _BLOCK_PARAMS = (
     ("attn.wv.weight", ("attn", "wv", "kernel"), _QKV),
     ("attn.wo.weight", ("attn", "wo", "kernel"), _OUT),
     ("mlp_norm.scale", ("mlp_norm", "scale"), _VEC),
+)
+_MLP_PARAMS = (
     ("mlp.gate.weight", ("mlp", "gate", "kernel"), _DENSE),
     ("mlp.up.weight", ("mlp", "up", "kernel"), _DENSE),
     ("mlp.down.weight", ("mlp", "down", "kernel"), _DENSE),
 )
+_MOE_PARAMS = (
+    ("mlp.router.weight", ("mlp", "router", "kernel"), _DENSE),
+    ("mlp.experts_gate", ("mlp", "experts_gate"), _VEC),
+    ("mlp.experts_up", ("mlp", "experts_up"), _VEC),
+    ("mlp.experts_down", ("mlp", "experts_down"), _VEC),
+)
+
+
+def _block_params(moe: bool) -> tuple:
+    return _BLOCK_PARAMS + (_MOE_PARAMS if moe else _MLP_PARAMS)
 
 
 def _get(tree: Any, path: tuple) -> Any:
@@ -334,7 +456,7 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     layers = params["layers"]
     n = np.asarray(layers["attn_norm"]["scale"]).shape[0]
     for i in range(n):
-        for name, path, kind in _BLOCK_PARAMS:
+        for name, path, kind in _block_params("router" in layers["mlp"]):
             a = np.asarray(_get(layers, path))[i]
             out[f"layers.{i}.{name}"] = t(_to_torch_layout(a, kind))
     return out
@@ -353,7 +475,7 @@ def params_to_jax(
         "attn.wv.weight": cfg.num_kv_heads,
     }
     layers: Dict[str, Any] = {}
-    for name, path, kind in _BLOCK_PARAMS:
+    for name, path, kind in _block_params(cfg.num_experts > 0):
         stack = []
         for i in range(cfg.num_layers):
             w = a[f"layers.{i}.{name}"]

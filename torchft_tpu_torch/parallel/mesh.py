@@ -7,21 +7,24 @@ order (outermost = slowest-varying over the device order):
 - ``pp``   pipeline parallelism,
 - ``fsdp`` sharded data parallelism,
 - ``ep``   expert parallelism,
-- ``sp``   sequence/context parallelism (ring attention over this axis),
+- ``sp``   sequence/context parallelism (ring or Ulysses attention over
+  this axis),
 - ``tp``   tensor parallelism (innermost).
 
 A :class:`Mesh` is an array of ``torch.device`` over those axes. A device
 may appear more than once: a mesh of one card repeated stands in for the
-JAX package's virtual host devices, so the ring runs its ``sp`` ranks one
-after another on that card. Only ``sp`` has a consumer in the port so far
-(``ring_attention.py``); sharding over the other axes is not ported
-(ROADMAP.md queue 1: ``parallel/sharding.py`` + FSDP2). The fault-tolerant
-replica axis is not a mesh axis: it is the Manager's (``device_mesh.py``).
+JAX package's virtual host devices, so the ring and Ulysses run their
+``sp`` ranks, and the pipeline its ``pp`` stages, one after another on that
+card. ``sp`` (``ring_attention.py``, ``ulysses.py``) and ``pp``
+(``pipeline.py``) have consumers in the port; sharding over the other axes
+(experts over ``ep`` included) is not ported (ROADMAP.md queue 1:
+``parallel/sharding.py`` + FSDP2). The fault-tolerant replica axis is not a
+mesh axis: it is the Manager's (``device_mesh.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +52,15 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis``, at index 0 of every other axis: the
+        ranks of a ring, a Ulysses all-to-all or a pipeline over it."""
+        i = self.axis_names.index(axis)
+        return [
+            self.devices[tuple(j if a == i else 0 for a in range(self.devices.ndim))]
+            for j in range(self.devices.shape[i])
+        ]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})})"

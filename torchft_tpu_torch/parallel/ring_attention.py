@@ -24,7 +24,7 @@ receives ``idx - 1``'s.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -176,11 +176,7 @@ def make_ring_attention(mesh: Mesh, use_flash: Optional[bool] = None):
             f"ring attention on a mesh with {', '.join(sharded)}: batch and "
             f"head sharding are not ported ({SHARDING_ITEM})"
         )
-    axis = mesh.axis_names.index("sp")
-    devices: List[torch.device] = [
-        mesh.devices[tuple(i if a == axis else 0 for a in range(mesh.devices.ndim))]
-        for i in range(mesh.devices.shape[axis])
-    ]
+    devices = mesh.axis_devices("sp")
     n = len(devices)
 
     def attn_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

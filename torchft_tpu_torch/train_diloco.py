@@ -119,6 +119,21 @@ def inner_optimizer(
     )
 
 
+def inner_tokens(
+    key, batch_size: int, seq_len: int, vocab_size: int, device: torch.device
+) -> torch.Tensor:
+    """The inner step's tokens [batch_size, seq_len], uniform over the
+    vocab, from a generator on ``device`` seeded by ``key`` (the group's
+    data seed and the inner step) mixed into 32 bits: the CPU generator
+    keeps only a seed's low 32 bits, so a seed that put the group in the
+    high bits would hand every group the same batches there."""
+    seed = int(np.random.SeedSequence(key).generate_state(1)[0])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(
+        0, vocab_size, (batch_size, seq_len), generator=gen, device=device
+    )
+
+
 def inner_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -264,12 +279,9 @@ def main(argv=None) -> int:
     try:
         for inner in inner_iter():
             telemetry.trace_window(inner)
-            gen = torch.Generator(device=device).manual_seed(
-                (data_seed << 32) | inner
-            )
-            x = torch.randint(
-                0, cfg.vocab_size, (args.batch_size, args.seq_len),
-                generator=gen, device=device,
+            x = inner_tokens(
+                (data_seed, inner), args.batch_size, args.seq_len,
+                cfg.vocab_size, device,
             )
             y = torch.roll(x, -1, 1)
             t0 = time.perf_counter()

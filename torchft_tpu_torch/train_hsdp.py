@@ -22,7 +22,15 @@ Run two replica groups against one lighthouse (both may share one card)::
 ``--attn ring`` runs attention as ring attention over the mesh's ``sp``
 axis (``parallel/ring_attention.py``); on one device ``sp`` is 1, so each
 layer folds one block with the offset-block flash kernels, as the JAX
-trainer does on one chip.
+trainer does on one chip. ``--attn ulysses`` runs the all-to-all mode
+(``parallel/ulysses.py``); at ``sp`` 1 each layer is one whole-sequence
+attention, the flash kernels from S >= 1024 (the Ulysses gate).
+
+``--model moe`` trains ``llama_moe_debug`` (4 experts, top-2, the router's
+aux loss in the loss); ``--model pipeline`` trains ``llama_debug`` with 4
+layers through the GPipe schedule (``parallel/pipeline.py``) in 2
+microbatches over the mesh's ``pp`` axis (1 on one device), as the JAX
+trainer builds them on one chip.
 
 ``--quantize`` (``--quantize-bits 4`` for int4) quantizes the replica-axis
 gradient allreduce: on CUDA gradients with the CUDA kernels of
@@ -64,8 +72,9 @@ def _parse(argv=None) -> argparse.Namespace:
         default="default",
         help="'flash': the CUDA flash-attention kernels from S >= 1024; "
         "'ring': ring attention over the mesh's sp axis (the CUDA block "
-        "kernels for shards of 256 tokens or more); 'default' keeps the "
-        "model preset's impl",
+        "kernels for shards of 256 tokens or more); 'ulysses': all-to-all "
+        "between sequence and heads over sp (the flash kernels from a "
+        "whole sequence of 1024); 'default' keeps the model preset's impl",
     )
     parser.add_argument("--quantize-bits", type=int, default=8, choices=(8, 4))
     parser.add_argument(
@@ -88,9 +97,6 @@ def _parse(argv=None) -> argparse.Namespace:
         key for key, on in (
             ("pg-sharded", args.ckpt_transport == "pg-sharded"),
             ("durable_dir", args.durable_dir is not None),
-            ("moe", args.model == "moe"),
-            ("pipeline", args.model == "pipeline"),
-            ("ulysses", args.attn == "ulysses"),
         ) if on
     ]
     if unported:
@@ -111,13 +117,13 @@ def main(argv=None) -> int:
     from torchft_tpu_torch import telemetry
     from torchft_tpu_torch.device_mesh import ft_init_device_mesh
     from torchft_tpu_torch.manager import Manager
-    from torchft_tpu_torch.models import llama_debug, llama_small
+    from torchft_tpu_torch.models import llama_debug, llama_moe_debug, llama_small
     from torchft_tpu_torch.ops import flash_attention, quantization
     from torchft_tpu_torch.optim import (
         load_optimizer_state_dict,
         optimizer_state_dict,
     )
-    from torchft_tpu_torch.parallel import auto_mesh
+    from torchft_tpu_torch.parallel import auto_mesh, make_pipeline_loss
     from torchft_tpu_torch.parallel.train import (
         build_model,
         default_optimizer,
@@ -129,16 +135,28 @@ def main(argv=None) -> int:
     group = os.environ.get("REPLICA_GROUP_ID", "0")
     mesh = auto_mesh(1, devices=[device])  # one device per replica group
     B, S = args.batch, args.seq
-    cfg = {"debug": llama_debug, "small": llama_small}[args.model]()
+    cfg = {
+        "debug": llama_debug,
+        "small": llama_small,
+        "moe": llama_moe_debug,
+        # The JAX trainer's pipeline model (train_hsdp.py), 2 microbatches.
+        "pipeline": lambda: llama_debug(num_layers=4),
+    }[args.model]()
     if args.attn == "flash":
         # bench.py's flash setting: the kernels from S >= 1024.
         cfg = dataclasses.replace(cfg, attn_impl="flash", flash_min_seq=1024)
-    elif args.attn == "ring":
-        cfg = dataclasses.replace(cfg, attn_impl="ring")
+    elif args.attn in ("ring", "ulysses"):
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn)
     # No block recompute: one replica group's activations at these sizes
     # fit the card, and recompute would run every block's forward (and its
     # attention kernel) twice per step.
     cfg = dataclasses.replace(cfg, remat=False)
+    # The pipeline's loss, built (and its config refused) before the group
+    # joins a quorum; None is the chunked loss.
+    loss_fn = (
+        make_pipeline_loss(cfg, mesh, n_micro=2)
+        if args.model == "pipeline" else None
+    )
 
     torch.manual_seed(0)  # same initial weights in every group
     model = build_model(cfg, mesh).to(device)
@@ -176,6 +194,9 @@ def main(argv=None) -> int:
     # optimizer apply.
     phase_ms = {"grad": [], "allreduce": [], "commit_apply": []}
     drained = False
+    # MoE: the routers' gradients of the last committed step.
+    router_names = model.router_names()
+    router_grads = []
     try:
         while manager.current_step() < args.steps:
             step = manager.current_step()
@@ -201,7 +222,7 @@ def main(argv=None) -> int:
                 "targets": torch.roll(inputs, -1, 1),
                 "mask": torch.ones((B, S), dtype=torch.int32, device=device),
             }
-            loss, grads = grad_step(model, batch)
+            loss, grads = grad_step(model, batch, loss_fn)
             sync()
             t_grad = time.perf_counter()
             grads = mm.allreduce_grads(
@@ -227,6 +248,7 @@ def main(argv=None) -> int:
                 phase_ms["allreduce"].append((t_ar - t_grad) * 1e3)
                 phase_ms["commit_apply"].append((t_end - t_ar) * 1e3)
                 losses.append(float(loss))
+                router_grads = [grads[n] for n in router_names]
                 logging.info(
                     "[group %s] step %d loss %.4f participants %d "
                     "step_ms %.1f",
@@ -272,6 +294,11 @@ def main(argv=None) -> int:
                     for k, v in phase_ms.items()
                 },
                 "tokens_per_step": B * S,
+                # MoE: sum of |router gradient| of the last committed step.
+                "router_grad_l1": (
+                    float(sum(g.abs().sum() for g in router_grads))
+                    if router_grads else None
+                ),
             }
             with open(
                 os.path.join(args.result_dir, f"group{group}.json"), "w"

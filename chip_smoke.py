@@ -116,9 +116,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    layers, fp32, 2 microbatches) within ``PIPELINE_TOL``; then the drill
    with ``--model pipeline`` and phase 13's other arguments, held as
    phase 13's.
-15. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses
-   drill's launches too, the quantize rows the DDP, MoE and GPipe drills'),
-   the card line, and the last line: ``{"ok": true, "device": {...}}``.
+15. pg-sharded heal: the flash drill with ``--ckpt-transport pg-sharded``
+   (params and AdamW state stay tensors on the card; the sender pulls one
+   leaf at a time over the process group, the receiver builds each leaf on
+   its own device): it must end in the flash drill's parameters (the
+   transport moves no bit), and the relaunched group's journal must hold
+   one sharded ``heal_xfer`` receive whose bytes are the state's, worked
+   out from llama_small (params, exp_avg and exp_avg_sq in fp32 and a
+   float32 step per parameter tensor). Phase 6 journals its HTTP heal the
+   same way; both heals' seconds (elapsed, wire, serialization) and GB/s
+   print side by side.
+16. Full-job preemption (``drill.preempt_all_drill``): the flash drill's
+   groups with ``--durable-every 3 --durable-dir`` are both SIGTERMed
+   after group 1's step 3 and drain with a durable snapshot (at step 4 or
+   5, off the cadence, so the drain writes a snapshot of its own); the job
+   relaunches against a fresh lighthouse, each group must resume from its
+   drain-time snapshot, and both must end at step 8 in the flash drill's
+   parameters (the batch of step k is seeded by k). Prints the drill's wall
+   time and each snapshot's copy and write seconds; the snapshots
+   (~1.50 GB each, up to 3 a group) are deleted after the phase.
+17. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
+   pg-sharded and preemption drills' launches too, the quantize rows the
+   DDP, MoE and GPipe drills'), the card line, and the last line:
+   ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
 or of the JAX package.
@@ -1442,12 +1462,12 @@ MOE_ARGS = ["--model", "moe", *SMALL_FAMILY_ARGS]
 PIPELINE_ARGS = ["--model", "pipeline", *SMALL_FAMILY_ARGS]
 
 
-def path_phase(name: str, args, kernels, absent=()) -> dict:
+def path_phase(name: str, args, kernels, absent=(), env=None) -> dict:
     """One kill/heal drill of two groups; raises unless both end at step 8
     with equal parameters and finite losses, every kernel in ``kernels``
     launched in both groups and none in ``absent``. Each group's process
     counts its own launches from 0, so the counts are this drill's
-    alone."""
+    alone. ``env`` goes to the groups' processes."""
     import shutil
 
     from torchft_tpu_torch.drill import kill_heal_drill
@@ -1462,7 +1482,7 @@ def path_phase(name: str, args, kernels, absent=()) -> dict:
     t0 = time.monotonic()
     results = kill_heal_drill(
         args, str(result_dir), str(result_dir / "logs"),
-        kill_after_step=3, timeout_s=400.0,
+        kill_after_step=3, timeout_s=400.0, env=env,
     )
     wall = time.monotonic() - t0
     for g, r in results.items():
@@ -1823,6 +1843,156 @@ def pipeline_check(device: str = "cuda") -> dict:
     return {"loss": (l1, l2), "worst_grad_rel": worst}
 
 
+# ---------------------------------------------------------------------------
+# Phases 15 and 16: the checkpoint paths (pg-sharded heal, durable snapshots)
+# ---------------------------------------------------------------------------
+
+PG_SHARDED_ARGS = [*PATH_ARGS, "--ckpt-transport", "pg-sharded"]
+# Snapshots of ~1.50 GB each, kept out of OUT so the logs directory stays
+# small.
+DURABLE_DIR = REPO / "build" / "chip_smoke_durable"
+
+
+def journal_env(name: str) -> dict:
+    """The groups' journal directory for drill ``name``, inside the
+    directory ``path_phase`` empties before it starts."""
+    return {"TORCHFT_JOURNAL_DIR": str(OUT / name / "journal")}
+
+
+def heal_receives(name: str) -> list:
+    """The ``heal_xfer`` receives in drill ``name``'s group 1 journals
+    after step 0 (the relaunched group's heal; both groups' first quorum
+    at step 0 heals too)."""
+    return [
+        {**e["attrs"], "step": e["step"]}
+        for f in sorted((OUT / name / "journal").glob("journal_replica1_*.jsonl"))
+        for e in map(json.loads, f.read_text().splitlines())
+        if e["event"] == "heal_xfer" and e["attrs"]["dir"] == "recv"
+        and e["step"] > 0
+    ]
+
+
+def llama_small_state_bytes() -> tuple:
+    """(bytes, parameter count, tensor count) of the heal state of
+    llama_small under AdamW: params, exp_avg and exp_avg_sq at the params'
+    dtype, and the float32 step torch keeps per parameter tensor. Worked
+    out from the model's shapes (built on the meta device)."""
+    import torch
+
+    from torchft_tpu_torch.models import Transformer, llama_small
+
+    with torch.device("meta"):
+        params = list(Transformer(llama_small()).parameters())
+    nbytes = sum(3 * p.numel() * p.element_size() for p in params) + 4 * len(params)
+    return nbytes, sum(p.numel() for p in params), len(params)
+
+
+def heal_line(label: str, heal: dict) -> str:
+    return (f"{label} heal at step {heal['step']}: {heal['nbytes']} B, "
+            f"elapsed {heal['elapsed_s']:.3f} s (wire {heal['wire_s']:.3f} s, "
+            f"ser {heal['ser_s']:.3f} s), "
+            f"{heal['nbytes'] / heal['elapsed_s'] / 1e9:.3f} GB/s")
+
+
+def pg_sharded_phase(path: dict) -> tuple:
+    """Phase 15: the flash drill healing over ``--ckpt-transport
+    pg-sharded``. Raises unless it ends in the flash drill's parameters and
+    the relaunched group's sharded receive moved exactly the state's
+    bytes. Returns (the drill's results, that receive's journal record)."""
+    name = "pg-sharded path"
+    runs = path_phase(
+        name, PG_SHARDED_ARGS, FLASH_KERNELS, absent=BLOCK_KERNELS,
+        env=journal_env(name),
+    )
+    if runs[0]["param_sha256"] != path[0]["param_sha256"]:
+        raise AssertionError(
+            f"the pg-sharded drill ended in other parameters than the flash "
+            f"drill ({runs[0]['param_sha256']} vs {path[0]['param_sha256']}): "
+            "the heal transport changed bits"
+        )
+    heals = heal_receives(name)
+    want, n_params, n_tensors = llama_small_state_bytes()
+    if not heals:
+        raise AssertionError(f"{name}: no heal_xfer receive in group 1's journal")
+    for heal in heals:
+        if not (heal.get("sharded") and heal["transport"] == "pg"):
+            raise AssertionError(f"{name}: not a sharded pg receive: {heal}")
+        if heal["nbytes"] != want:
+            raise AssertionError(
+                f"{name}: the heal received {heal['nbytes']} B, the state is "
+                f"{want} B ({n_params} parameters in {n_tensors} tensors)"
+            )
+    print(f"{name} ok: {want} B = 3 x {n_params} x 4 B + {n_tensors} steps x "
+          "4 B received", flush=True)
+    return runs, heals[-1]
+
+
+def preempt_phase(path: dict) -> dict:
+    """Phase 16: the full-job preemption drill over the flash drill's
+    groups. ``preempt_all_drill`` raises unless both groups drained, each
+    resumed from its drain-time snapshot and both ended equal; this phase
+    also requires step 8, the flash drill's parameters, every flash kernel
+    launched in both relaunched groups and no block kernel. The snapshots
+    are deleted afterwards."""
+    import shutil
+
+    from torchft_tpu_torch.drill import preempt_all_drill
+    from torchft_tpu_torch.ops import flash_attention, quantization
+
+    result_dir = OUT / "preempt"
+    shutil.rmtree(result_dir, ignore_errors=True)
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    # The counts of this run only; the groups' processes start theirs at 0.
+    for counts in (flash_attention.LAUNCHES, quantization.LAUNCHES):
+        for kernel in counts:
+            counts[kernel] = 0
+    try:
+        out = preempt_all_drill(
+            "torchft_tpu_torch.train_hsdp",
+            # Cadence 3: the drain (step 4 or 5) then writes its own
+            # snapshot instead of finding the cadence's at its step.
+            [*PATH_ARGS, "--durable-every", "3", "--durable-dir", str(DURABLE_DIR)],
+            str(result_dir), str(result_dir / "logs"),
+            term_after_step=3, timeout_s=600.0,
+        )
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    for g, r in out["resume"].items():
+        if r["final_step"] != 8 or r["param_sha256"] != path[0]["param_sha256"]:
+            raise AssertionError(
+                f"preemption drill: group {g} ended at step {r['final_step']} "
+                f"in {r['param_sha256']}, not at step 8 in the flash drill's "
+                f"{path[0]['param_sha256']}"
+            )
+        if not r["losses"] or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"preemption drill: group {g} losses {r['losses']}")
+        for kernel in FLASH_KERNELS:
+            if r["kernel_launches"][kernel] <= 0:
+                raise AssertionError(f"preemption drill: group {g} never launched {kernel}")
+        for kernel in BLOCK_KERNELS:
+            if r["kernel_launches"][kernel] != 0:
+                raise AssertionError(f"preemption drill: group {g} launched {kernel}")
+    for phase in ("drain", "resume"):
+        for g, r in out[phase].items():
+            for save in r["durable_saves"]:
+                print(f"preemption drill {phase} group {g}: snapshot at step "
+                      f"{save['step']}: {save['nbytes']} B, host copy "
+                      f"{save['copy_s']:.3f} s, write {save['write_s']:.3f} s "
+                      f"({save['nbytes'] / save['write_s'] / 1e9:.3f} GB/s)",
+                      flush=True)
+            med = r["median_step_ms"]
+            print(f"preemption drill {phase} group {g}: final_step "
+                  f"{r['final_step']} committed {r['committed_steps']} median "
+                  f"step {med:.1f} ms phases "
+                  + json.dumps({k: round(v, 1) for k, v in r["median_phase_ms"].items()}),
+                  flush=True)
+    print(f"preemption drill ok: drained at {out['drained_steps']}, resumed from "
+          f"{out['resumed_from_steps']}, both at step 8 in "
+          f"{path[0]['param_sha256'][:16]}, drill wall {out['wall_s']:.1f}s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1844,7 +2014,8 @@ def main() -> int:
     records.update(block_phase())
     records.update(quantize_phase())
     records["reduce"], harness = reduce_phase()
-    path = path_phase("path", PATH_ARGS, FLASH_KERNELS)
+    path = path_phase("path", PATH_ARGS, FLASH_KERNELS, env=journal_env("path"))
+    http_heals = heal_receives("path")
     quantized = path_phase(
         "quantized path", [*PATH_ARGS, "--quantize"], FLASH_KERNELS + QUANT_KERNELS
     )
@@ -1887,13 +2058,20 @@ def main() -> int:
         "pipeline path", PIPELINE_ARGS, QUANT_KERNELS,
         absent=FLASH_KERNELS + BLOCK_KERNELS,
     )
+    pg_sharded, pg_heal = pg_sharded_phase(path)
+    for heal in http_heals:
+        print(heal_line("http (phase 6)", heal), flush=True)
+    print(heal_line("pg-sharded (phase 15)", pg_heal), flush=True)
+    preempt = preempt_phase(path)
     for g in (0, 1):
-        a, b, c, d = path[g], quantized[g], ring[g], ulysses[g]
+        a, b, c, d, e = path[g], quantized[g], ring[g], ulysses[g], pg_sharded[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
               f"{json.dumps(a['median_phase_ms'])}, int8 {b['median_step_ms']:.1f} ms "
               f"{json.dumps(b['median_phase_ms'])}, ring {c['median_step_ms']:.1f} ms "
               f"{json.dumps(c['median_phase_ms'])}, ulysses "
-              f"{d['median_step_ms']:.1f} ms {json.dumps(d['median_phase_ms'])}",
+              f"{d['median_step_ms']:.1f} ms {json.dumps(d['median_phase_ms'])}, "
+              f"pg-sharded {e['median_step_ms']:.1f} ms "
+              f"{json.dumps(e['median_phase_ms'])}",
               flush=True)
 
     kernels = []
@@ -1917,10 +2095,22 @@ def main() -> int:
             launches += sum(more.values())
             rec = {**rec, "localsgd_launches": localsgd["launches"][name], **more}
         if name in FLASH_KERNELS:
-            # The Ulysses drill runs the whole-sequence kernels too.
-            ulysses_launches = sum(ulysses[g]["kernel_launches"][name] for g in (0, 1))
-            launches += ulysses_launches
-            rec = {**rec, "ulysses_launches": ulysses_launches}
+            # The Ulysses, pg-sharded and preemption drills run the
+            # whole-sequence kernels too.
+            more = {
+                "ulysses_launches": sum(
+                    ulysses[g]["kernel_launches"][name] for g in (0, 1)
+                ),
+                "pg_sharded_launches": sum(
+                    pg_sharded[g]["kernel_launches"][name] for g in (0, 1)
+                ),
+                "preempt_launches": sum(
+                    preempt[phase][g]["kernel_launches"][name]
+                    for phase in ("drain", "resume") for g in (0, 1)
+                ),
+            }
+            launches += sum(more.values())
+            rec = {**rec, **more}
         kernels.append({
             "name": name,
             "route": "cuda",

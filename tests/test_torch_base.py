@@ -20,7 +20,10 @@ from torchft_tpu_torch import telemetry as ttel
 from torchft_tpu_torch.checkpointing import _serialization as tser
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchft_tpu", "_train_common")
+FORBIDDEN = (
+    "jax", "jaxlib", "flax", "optax", "orbax", "etils", "ml_dtypes",
+    "torchft_tpu", "_train_common",
+)
 
 
 def _imported_roots(path: Path):

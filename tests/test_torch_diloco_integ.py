@@ -4,7 +4,9 @@ of ``chip_smoke.py``'s DiLoCo drill): two replica-group OS processes of
 error-feedback wire; group 1 is SIGKILLed after outer step 2, restarts,
 heals the global state (fragment backups + outer optimizer) from the
 survivor, and both groups finish the outer-step target with the same
-``global_sha``. Also the trainer's refusals."""
+``global_sha``. Also a ``--durable-dir`` resume that ends in an
+uninterrupted run's global state, and the trainer's refusal without a
+card."""
 
 import math
 import subprocess
@@ -12,6 +14,7 @@ import sys
 
 import pytest
 
+from test_torch_train_integ import durable_resume
 from torchft_tpu_torch.drill import kill_heal_drill
 
 OUTER_STEPS = 6
@@ -76,10 +79,19 @@ def _run(*flags):
     )
 
 
-def test_durable_dir_exits_naming_roadmap():
-    proc = _run("--device", "cpu", "--durable-dir", "x")
-    assert proc.returncode == 2
-    assert "ROADMAP.md" in proc.stderr and "durable" in proc.stderr, proc.stderr
+@pytest.mark.timeout(300)
+def test_durable_resume_equals_uninterrupted_run(tmp_path):
+    """A run stopped at outer step 4 and relaunched to 6 restores the
+    global state, the inner params and AdamW state, and its place in the
+    inner stream, and ends in the global state of an uninterrupted run."""
+    resumed, whole, _ = durable_resume(
+        "torchft_tpu_torch.train_diloco", tmp_path, "--outer-steps",
+        ["--sync-every", "4", "--n-fragments", "2", "--fragment-sync-delay",
+         "0", "--batch-size", "4", "--seq-len", "64"],
+    )
+    assert resumed["final_outer_step"] == whole["final_outer_step"] == 6
+    assert resumed["inner_steps"] == 4  # two syncs of 2 inner steps each
+    assert resumed["global_sha"] == whole["global_sha"]
 
 
 def test_no_card_exits_naming_the_cpu_flag():

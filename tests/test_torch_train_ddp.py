@@ -12,7 +12,9 @@ repo root's ``train_ddp.py``, and end to end on the CPU.
   cpu`` on the int4 + error-feedback wire; group 1 is SIGKILLed after step
   3, restarts, heals params, Adam state and BatchNorm statistics, and both
   finish with bitwise-equal params and equal statistics at the healed step.
-- The trainer's refusals: ``--durable-dir`` and no card.
+- A ``--durable-dir`` resume (resnet-tiny: params, Adam state and
+  BatchNorm statistics) that ends in an uninterrupted run's bits, and the
+  trainer's refusal without a card.
 """
 
 import math
@@ -28,6 +30,7 @@ import torch
 
 import train_ddp as jax_train_ddp
 from test_torch_mixed_quorum import run_leaf_pair
+from test_torch_train_integ import durable_resume
 from torchft_tpu.models import resnet as jresnet
 from torchft_tpu_torch import train_ddp
 from torchft_tpu_torch.drill import kill_heal_drill
@@ -173,10 +176,18 @@ def _run(*flags):
     )
 
 
-def test_durable_dir_exits_naming_roadmap():
-    proc = _run("--device", "cpu", "--durable-dir", "x")
-    assert proc.returncode == 2
-    assert "ROADMAP.md" in proc.stderr and "durable" in proc.stderr, proc.stderr
+@pytest.mark.timeout(300)
+def test_durable_resume_equals_uninterrupted_run(tmp_path):
+    """A run stopped at step 4 and relaunched to step 6 resumes from its
+    snapshot (the BatchNorm statistics included) and ends in the params
+    and statistics of an uninterrupted 6-step run."""
+    resumed, whole, _ = durable_resume(
+        "torchft_tpu_torch.train_ddp", tmp_path, "--steps",
+        ["--model", "resnet-tiny", "--batch-size", "4"],
+    )
+    assert resumed["final_step"] == whole["final_step"] == 6
+    assert resumed["param_sha256"] == whole["param_sha256"]
+    assert resumed["batch_stats_sha"]["5"] == whole["batch_stats_sha"]["5"]
 
 
 def test_no_card_exits_naming_the_cpu_flag():

@@ -1,20 +1,14 @@
 """Helpers shared by the port's trainers (``train_hsdp``, ``train_diloco``,
-``train_ddp``): the flags not ported yet, the device check, the
-preemption-drain signal and the replica group's data seed. The port's
-copies of the repo root ``_train_common.py``'s ``drain_signal`` and
-``group_data_seed``; the JAX trainers' CPU pinning, durable regime and perf
-helpers are not ported (ROADMAP.md queue 1)."""
+``train_ddp``): the device check, the preemption-drain signal, the durable
+regime and the replica group's data seed. The port's copies of the repo
+root ``_train_common.py``'s ``drain_signal``, ``DurableRegime`` and
+``group_data_seed``; the JAX trainers' CPU pinning and perf helpers are not
+ported (ROADMAP.md queue 1)."""
 
 from __future__ import annotations
 
+import os
 import zlib
-
-# Flags the JAX trainers have whose paths are not ported yet, with the
-# ROADMAP.md item that ports them.
-UNPORTED = {
-    "pg-sharded": "queue 1: checkpointing/pg_transport + sharded",
-    "durable_dir": "queue 1: checkpointing/durable",
-}
 
 
 def trainer_device(name: str, prog: str):
@@ -75,3 +69,80 @@ def group_data_seed(replica_group: str) -> int:
         else zlib.crc32(replica_group.encode())
     )
     return seed % (2**31)
+
+
+class DurableRegime:
+    """The durable-snapshot wiring shared by the train scripts: periodic
+    snapshots on a committed-step cadence, a final snapshot on drain,
+    restore at boot (``checkpointing/durable.py``). Composes with live
+    heal: a snapshot holds the state the heal path ships, so restore
+    reuses the heal loaders; what durable adds is survival of a FULL-job
+    preemption (every replica drains; no live peer is left to heal from).
+
+    ``state_factory`` must return the snapshot tree; it is called only when
+    a save actually happens (off-cadence steps pay nothing). The snapshot
+    copies the state before ``save`` returns, so the factory may hand over
+    live tensors."""
+
+    def __init__(self, directory, replica_group: str, every: int):
+        from torchft_tpu_torch.checkpointing import DurableCheckpointer
+
+        self._ckpt = DurableCheckpointer(
+            os.path.join(directory, f"group{replica_group}"), every=every
+        )
+        self._group = replica_group
+
+    def restore_if_any(self):
+        """Latest snapshot as a host tree, or None on a fresh boot."""
+        if self._ckpt.latest_step() is None:
+            return None
+        return self._ckpt.restore()
+
+    @staticmethod
+    def rehang_like(cur, saved):
+        """See ``DurableCheckpointer.rehang_like``: re-hangs ``saved``'s
+        leaves on ``cur``'s live tree structure."""
+        from torchft_tpu_torch.checkpointing.durable import DurableCheckpointer
+
+        return DurableCheckpointer.rehang_like(cur, saved)
+
+    @staticmethod
+    def restore_manager(manager, snap) -> None:
+        """Loads the manager scalars from a snapshot (the Manager stores
+        plain ints)."""
+        manager.load_state_dict(
+            {k: int(v) for k, v in snap["manager"].items()}
+        )
+
+    def log_resumed(self, step: int) -> None:
+        # Exact phrase is load-bearing: the preemption drills grep
+        # "resumed from durable step N" to prove the resume source.
+        print(
+            f"[group {self._group}] resumed from durable step {step}",
+            flush=True,
+        )
+
+    def on_commit(self, step: int, state_factory) -> None:
+        self._ckpt.maybe_save(step, state_factory)
+
+    def on_drain(self, step: int, state_factory) -> None:
+        """Final synchronous snapshot at the drain boundary (skipped when
+        the cadence already captured this exact step)."""
+        self._ckpt.wait()
+        if self._ckpt.latest_step() == step:
+            return
+        self._ckpt.save(step, state_factory())
+        self._ckpt.wait()
+        print(
+            f"[group {self._group}] durable snapshot at step {step}",
+            flush=True,
+        )
+
+    @property
+    def saves(self):
+        """``DurableCheckpointer.saves``: each snapshot's copy and write
+        seconds and bytes."""
+        return self._ckpt.saves
+
+    def close(self) -> None:
+        self._ckpt.close()

@@ -10,7 +10,10 @@ over a process group, and in-place receive into a preallocated state dict
 
 Torch tensors are pulled to host as numpy on serialize; receivers get numpy
 and move it to their device themselves — the transport layer never owns
-device placement.
+device placement. A bfloat16 tensor, whose dtype numpy lacks, travels as
+the raw bits of ``t.view(torch.int16)`` under the meta dtype ``"bfloat16"``
+(the name the JAX package writes for the same bytes) and is rebuilt as a
+bfloat16 tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -35,10 +38,53 @@ def _is_array(x: Any) -> bool:
     return mod.startswith("torch") and hasattr(x, "detach") and hasattr(x, "shape")
 
 
-def _to_host(x: Any) -> np.ndarray:
+# Checkpoint dtypes numpy lacks, each carried as the raw bits of an integer
+# dtype of its width.
+_RAW_DTYPES = {"bfloat16": np.int16}
+
+
+def wire_dtype(name: str) -> np.dtype:
+    """The numpy dtype a buffer of checkpoint dtype ``name`` travels as."""
+    return np.dtype(_RAW_DTYPES.get(name, name))
+
+
+def _is_torch_tensor(x: Any) -> bool:
+    # torch.Tensor without importing torch at module load.
+    mod = getattr(type(x), "__module__", "")
+    return mod.startswith("torch") and hasattr(x, "untyped_storage")
+
+
+def dtype_name(x: Any) -> str:
+    """A tensor's or array's dtype as the checkpoint names it (numpy's
+    names; ``"bfloat16"`` as the JAX package writes it)."""
+    if _is_torch_tensor(x):
+        return str(x.dtype).removeprefix("torch.")
+    return str(np.dtype(x.dtype))
+
+
+def _to_host(x: Any) -> Tuple[np.ndarray, str]:
+    """``(host array, checkpoint dtype name)`` of an array leaf. A CPU
+    tensor's array aliases the tensor (``.numpy()`` is zero-copy)."""
     if isinstance(x, np.ndarray):
-        return x
-    return x.detach().cpu().numpy()
+        return x, str(x.dtype)
+    import torch
+
+    t = x.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy(), "bfloat16"
+    return t.cpu().numpy(), dtype_name(t)
+
+
+def from_wire(arr: np.ndarray, dtype: str) -> Any:
+    """A received buffer as its leaf: the numpy array itself, or for a
+    dtype numpy lacks a CPU tensor over the same bytes."""
+    if dtype not in _RAW_DTYPES:
+        return arr
+    import torch
+
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).view(getattr(torch, dtype))
 
 
 @dataclass
@@ -56,8 +102,8 @@ def split_state(obj: Any) -> Tuple[Any, List[np.ndarray]]:
 
     def walk(x: Any) -> Any:
         if _is_array(x) and getattr(x, "ndim", 0) >= 0 and not np.isscalar(x):
-            arr = _to_host(x)
-            ref = _TensorRef(len(buffers), str(arr.dtype), tuple(arr.shape))
+            arr, dtype = _to_host(x)
+            ref = _TensorRef(len(buffers), dtype, tuple(arr.shape))
             buffers.append(np.ascontiguousarray(arr))
             return ref
         if isinstance(x, dict):
@@ -102,8 +148,8 @@ def join_state(
                     and dst.flags.writeable
                 ):
                     np.copyto(dst, arr.astype(dst.dtype, copy=False))
-                    return dst
-            return arr
+                    return from_wire(dst, x.dtype)
+            return from_wire(arr, x.dtype)
         if isinstance(x, dict):
             return {k: walk(v) for k, v in x.items()}
         if isinstance(x, tuple):
@@ -168,7 +214,7 @@ def load_stream(fileobj: BinaryIO, inplace_into: Optional[Any] = None) -> Any:
     for ref in refs:
         size = _LEN.unpack(_read_exact(fileobj, 8))[0]
         raw = _read_exact(fileobj, size)
-        buffers[ref.index] = np.frombuffer(raw, dtype=np.dtype(ref.dtype)).copy()
+        buffers[ref.index] = np.frombuffer(raw, dtype=wire_dtype(ref.dtype)).copy()
     return join_state(meta, buffers, inplace_into)
 
 

@@ -29,6 +29,7 @@ from torchft_tpu_torch.checkpointing._serialization import (
     collect_refs,
     join_state,
     split_state,
+    wire_dtype,
 )
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 
@@ -371,7 +372,7 @@ class HTTPTransport(CheckpointTransport):
             raw = parts.pop(ref.index)
             nbytes += len(raw)
             buffers[ref.index] = np.frombuffer(
-                raw, dtype=np.dtype(ref.dtype)
+                raw, dtype=wire_dtype(ref.dtype)
             )
         rebuild_ser_s = time.monotonic() - t_ser0
         log = get_event_log()

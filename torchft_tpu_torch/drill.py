@@ -1,13 +1,19 @@
-"""Kill-and-heal drill: two replica groups of a trainer (``train_hsdp``,
-``train_diloco`` or ``train_ddp``) against one lighthouse; one group is
-SIGKILLed mid-run, restarted, heals from the survivor, and both finish
-(:func:`kill_heal_drill`; driven by ``chip_smoke.py`` on the card and by the
-CPU integration tests)."""
+"""Fault drills over two replica groups of a trainer (``train_hsdp``,
+``train_diloco`` or ``train_ddp``), driven by ``chip_smoke.py`` on the card
+and by the CPU integration tests:
+
+- :func:`kill_heal_drill`: against one lighthouse, one group is SIGKILLed
+  mid-run, restarted, heals from the survivor, and both finish;
+- :func:`preempt_all_drill`: a full-job preemption (the twin of the JAX
+  package's ``tools/drills.py preempt-all``): every group is SIGTERMed at
+  once and drains with a durable snapshot, then the whole job relaunches
+  against a FRESH lighthouse and resumes from the snapshots."""
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -48,6 +54,58 @@ def _stop(proc: subprocess.Popen) -> None:
     proc.wait()
 
 
+def _lighthouse():
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    return LighthouseServer(
+        bind="127.0.0.1:0",
+        min_replicas=2,
+        join_timeout_ms=30000,
+        quorum_tick_ms=50,
+        heartbeat_timeout_ms=5000,
+    )
+
+
+def _wait_for_mark(
+    proc: subprocess.Popen, log: Path, mark: str, deadline: float, what: str
+) -> None:
+    """Returns once ``log`` holds ``mark``; raises if ``proc`` exits first
+    or ``deadline`` passes."""
+    while mark not in log.read_text(errors="replace"):
+        if proc.poll() is not None:
+            raise RuntimeError(
+                f"group 1 exited ({proc.returncode}) before {what}; see {log}"
+            )
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"group 1 never reached {what}")
+        time.sleep(0.05)
+
+
+def _wait_all(
+    procs: List[subprocess.Popen], deadline: float, timeout_s: float
+) -> List[int]:
+    """Each process's exit code; raises if one outlasts ``deadline``."""
+    rcs = []
+    for g, proc in enumerate(procs):
+        left = max(deadline - time.monotonic(), 1.0)
+        try:
+            rcs.append(proc.wait(timeout=left))
+        except subprocess.TimeoutExpired:
+            raise TimeoutError(f"group {g} did not finish in {timeout_s}s")
+    return rcs
+
+
+def _read_results(result_dir: str) -> Dict[int, Optional[dict]]:
+    results: Dict[int, Optional[dict]] = {}
+    for g in range(2):
+        try:
+            with open(os.path.join(result_dir, f"group{g}.json")) as f:
+                results[g] = json.load(f)
+        except OSError:
+            results[g] = None
+    return results
+
+
 def kill_heal_drill(
     trainer_args: Sequence[str],
     result_dir: str,
@@ -66,19 +124,11 @@ def kill_heal_drill(
     restarted at once. Returns {group: result JSON}; raises
     if a group fails or the drill outlasts ``timeout_s``. Every process it
     starts is stopped before it returns."""
-    from torchft_tpu_torch.coordination import LighthouseServer
-
     result_dir = os.path.abspath(result_dir)  # the trainers run in the repo root
     logs = Path(log_dir)
     logs.mkdir(parents=True, exist_ok=True)
     args = [*trainer_args, "--min-replicas", "2", "--result-dir", result_dir]
-    lighthouse = LighthouseServer(
-        bind="127.0.0.1:0",
-        min_replicas=2,
-        join_timeout_ms=30000,
-        quorum_tick_ms=50,
-        heartbeat_timeout_ms=5000,
-    )
+    lighthouse = _lighthouse()
     procs: List[subprocess.Popen] = []
     deadline = time.monotonic() + timeout_s
     try:
@@ -89,27 +139,16 @@ def kill_heal_drill(
                     logs / f"group{g}.log", env,
                 )
             )
-        mark = mark.format(n=kill_after_step)
         victim_log = logs / "group1.log"
-        while mark not in victim_log.read_text(errors="replace"):
-            if procs[1].poll() is not None:
-                raise RuntimeError(
-                    f"group 1 exited ({procs[1].returncode}) before step "
-                    f"{kill_after_step}; see {victim_log}"
-                )
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"group 1 never reached step {kill_after_step}")
-            time.sleep(0.05)
+        _wait_for_mark(
+            procs[1], victim_log, mark.format(n=kill_after_step), deadline,
+            f"step {kill_after_step}",
+        )
         _stop(procs[1])
         with open(victim_log, "a") as f:
             f.write(f"\n=== SIGKILLed after step {kill_after_step}; restart ===\n")
         procs[1] = _spawn(trainer, 1, args, lighthouse.address(), victim_log, env)
-        for g, proc in enumerate(procs):
-            left = max(deadline - time.monotonic(), 1.0)
-            try:
-                rc = proc.wait(timeout=left)
-            except subprocess.TimeoutExpired:
-                raise TimeoutError(f"group {g} did not finish in {timeout_s}s")
+        for g, rc in enumerate(_wait_all(procs, deadline, timeout_s)):
             if rc != 0:
                 raise RuntimeError(
                     f"group {g} exited {rc}; see {logs / f'group{g}.log'}"
@@ -118,8 +157,126 @@ def kill_heal_drill(
         for proc in procs:
             _stop(proc)
         lighthouse.shutdown()
-    results = {}
-    for g in range(2):
-        with open(os.path.join(result_dir, f"group{g}.json")) as f:
-            results[g] = json.load(f)
+    results = _read_results(result_dir)
+    for g, r in results.items():
+        if r is None:
+            raise RuntimeError(f"group {g} wrote no result in {result_dir}")
     return results
+
+
+def _require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+# The progress line that marks a committed step in each trainer's log, and
+# the result keys of its bitwise state and its final step.
+_FAMILY = {
+    "torchft_tpu_torch.train_hsdp": (
+        "[group 1] step {n} loss", "param_sha256", "final_step",
+    ),
+    "torchft_tpu_torch.train_ddp": (
+        "[group 1] step={n} loss=", "param_sha256", "final_step",
+    ),
+    "torchft_tpu_torch.train_diloco": (
+        "outer_step={n} loss", "global_sha", "final_outer_step",
+    ),
+}
+
+
+def preempt_all_drill(
+    trainer: str,
+    trainer_args: Sequence[str],
+    result_dir: str,
+    log_dir: str,
+    term_after_step: int = 3,
+    timeout_s: float = 600.0,
+    env: Optional[Dict[str, str]] = None,
+) -> dict:
+    """Full-job preemption: runs groups 0 and 1 of ``python -m <trainer>
+    <trainer_args> --min-replicas 2 --result-dir ...`` (``trainer_args``
+    must carry ``--durable-dir``); once group 1's log shows its progress
+    line for ``term_after_step``, SIGTERMs BOTH groups. Each drains at its
+    next step boundary with a final durable snapshot. Then the whole job
+    relaunches from scratch, against a FRESH lighthouse (total
+    control-plane loss): only the snapshots connect the two phases. Groups
+    may snapshot one step apart; the behind group live-heals forward at
+    the first quorum after the resume.
+
+    Raises unless both groups drained, each relaunched group resumed from
+    its drain-time snapshot ("resumed from durable step N" equal to the
+    step it drained at) and both ended with the same bitwise state.
+    Results land in ``result_dir/{drain,resume}``, logs in
+    ``log_dir/{drain,resume}/group{g}.log``. Returns ``{"drained_steps",
+    "resumed_from_steps", "final_steps", "drain": {group: result},
+    "resume": {group: result}, "wall_s"}``. Every process it starts is
+    stopped before it returns."""
+    mark, sha_key, step_key = _FAMILY[trainer]
+    t0 = time.monotonic()
+    deadline = t0 + timeout_s
+    phases = {}
+    for phase in ("drain", "resume"):
+        phase_dir = os.path.abspath(os.path.join(result_dir, phase))
+        logs = Path(log_dir) / phase
+        logs.mkdir(parents=True, exist_ok=True)
+        args = [*trainer_args, "--min-replicas", "2", "--result-dir", phase_dir]
+        lighthouse = _lighthouse()
+        procs: List[subprocess.Popen] = []
+        try:
+            for g in range(2):
+                procs.append(
+                    _spawn(
+                        trainer, g, args, lighthouse.address(),
+                        logs / f"group{g}.log", env,
+                    )
+                )
+            if phase == "drain":
+                _wait_for_mark(
+                    procs[1], logs / "group1.log",
+                    mark.format(n=term_after_step), deadline,
+                    f"the kill window (step {term_after_step})",
+                )
+                for g, proc in enumerate(procs):
+                    _require(proc.poll() is None, f"SIGTERM {g} failed")
+                    os.kill(proc.pid, signal.SIGTERM)
+            rcs = _wait_all(procs, deadline, timeout_s)
+        finally:
+            for proc in procs:
+                _stop(proc)
+            lighthouse.shutdown()
+        phases[phase] = (_read_results(phase_dir), rcs, logs)
+
+    res1, rcs1, _ = phases["drain"]
+    all_drained = all(r and r.get("drained") for r in res1.values())
+    drained_steps = [(res1[g] or {}).get(step_key) for g in (0, 1)]
+    _require(all_drained, f"not every group drained cleanly: {res1}")
+    _require(rcs1 == [0, 0], "phase-1 drain did not exit cleanly everywhere")
+
+    res2, rcs2, logs2 = phases["resume"]
+    resumed = []
+    for g in (0, 1):
+        text = (logs2 / f"group{g}.log").read_text(errors="replace")
+        m = re.search(r"resumed from durable step (\d+)", text)
+        resumed.append(int(m.group(1)) if m else None)
+    _require(rcs2 == [0, 0], "relaunched job did not finish cleanly")
+    # Resume must come from the DRAIN-time snapshot, not merely any
+    # periodic one: otherwise a broken save-on-drain path would still pass
+    # (the relaunch would fall back to the last cadence snapshot and
+    # converge bitwise anyway).
+    _require(
+        resumed == drained_steps,
+        f"relaunch did not resume from the drain snapshots: "
+        f"resumed={resumed} drained={drained_steps}",
+    )
+    sha = [(res2[g] or {}).get(sha_key) for g in (0, 1)]
+    _require(
+        sha[0] is not None and sha[0] == sha[1], "post-resume groups diverged"
+    )
+    return {
+        "drained_steps": drained_steps,
+        "resumed_from_steps": resumed,
+        "final_steps": [res2[g][step_key] for g in (0, 1)],
+        "drain": res1,
+        "resume": res2,
+        "wall_s": time.monotonic() - t0,
+    }

@@ -4,7 +4,8 @@ Reference: ``torchft/optim.py:24-63`` — ``zero_grad()`` starts the quorum for
 the step and ``step()`` only applies the update if the distributed commit
 gate passes. Here the optimizer is a ``torch.optim.Optimizer``, registered
 with the Manager for live checkpoint heal (its parameters and state travel
-as host numpy).
+as host numpy, or in the device form as the tensors themselves for the
+sharded PG transport).
 """
 
 from __future__ import annotations
@@ -16,37 +17,71 @@ import torch
 from torchft_tpu_torch.manager import Manager
 
 
-def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """Parameters and per-parameter state of ``optimizer`` as host numpy,
-    keyed by (group, index) position so the receiver needs no ids."""
+def optimizer_state_dict(
+    optimizer: torch.optim.Optimizer, device: bool = False
+) -> Dict[str, Any]:
+    """Parameters and per-parameter state of ``optimizer`` keyed by (group,
+    index) position, so the receiver needs no ids: as host numpy, or with
+    ``device=True`` as the live tensors on their devices (detached, not
+    copied; AdamW's ``step`` stays the 0-d tensor torch keeps on the CPU)."""
+    leaf = (
+        (lambda t: t.detach()) if device
+        else (lambda t: t.detach().cpu().numpy())
+    )
     params, state = {}, {}
     for g, group in enumerate(optimizer.param_groups):
         for i, p in enumerate(group["params"]):
             key = f"{g}.{i}"
-            params[key] = p.detach().cpu().numpy()
+            params[key] = leaf(p)
             state[key] = {
-                name: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+                name: (leaf(v) if torch.is_tensor(v) else v)
                 for name, v in optimizer.state.get(p, {}).items()
             }
     return {"params": params, "state": state}
 
 
+def init_adam_state(optimizer: torch.optim.Optimizer) -> None:
+    """Creates the state torch's Adam and AdamW create at their first step
+    (``step`` a 0-d float32 CPU tensor at 0, ``exp_avg`` and ``exp_avg_sq``
+    zeros like the parameter) for every parameter that has none, so the
+    first step computes the same bits. A sharded heal's receiver needs the
+    state's tensors before that step: they name each leaf's device."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        raise TypeError(f"not an Adam optimizer: {type(optimizer).__name__}")
+    for group in optimizer.param_groups:
+        if group.get("amsgrad") or group.get("fused") or group.get("capturable"):
+            raise ValueError("amsgrad, fused and capturable keep other state")
+        for p in group["params"]:
+            if not optimizer.state.get(p):
+                optimizer.state[p] = {
+                    "step": torch.tensor(0.0, dtype=torch.float32),
+                    "exp_avg": torch.zeros_like(
+                        p, memory_format=torch.preserve_format
+                    ),
+                    "exp_avg_sq": torch.zeros_like(
+                        p, memory_format=torch.preserve_format
+                    ),
+                }
+
+
 def load_optimizer_state_dict(
     optimizer: torch.optim.Optimizer, sd: Dict[str, Any]
 ) -> None:
-    """Writes a :func:`optimizer_state_dict` payload into ``optimizer``'s
-    parameters (in place, on their devices) and replaces its state. Scalar
-    state (AdamW's ``step``) stays where torch keeps it, on the CPU."""
+    """Writes a :func:`optimizer_state_dict` payload (host numpy or the
+    device form) into ``optimizer``'s parameters (in place, on their
+    devices) and replaces its state with copies. Scalar state (AdamW's
+    ``step``) stays where torch keeps it, on the CPU."""
     with torch.no_grad():
         for g, group in enumerate(optimizer.param_groups):
             for i, p in enumerate(group["params"]):
                 key = f"{g}.{i}"
-                p.copy_(torch.from_numpy(sd["params"][key]))
+                p.copy_(torch.as_tensor(sd["params"][key]))
                 new = {}
                 for name, v in sd["state"][key].items():
                     t = torch.as_tensor(v)
                     new[name] = (
-                        t.to(p.device).clone() if t.dim() > 0 else t.clone()
+                        t.to(p.device, copy=True) if t.dim() > 0
+                        else t.to("cpu", copy=True)
                     )
                 optimizer.state[p] = new
 

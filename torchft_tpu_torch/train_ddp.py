@@ -25,6 +25,11 @@ gradient allreduce: CUDA gradients with the kernels of
 ``ops/quantization.py`` before the device->host pull (without
 ``--error-feedback``), host gradients with the host quantizer.
 
+``--durable-dir DIR`` (``--durable-every N``, default 50) adds durable
+snapshots (``checkpointing/durable.py``) under ``DIR/group<id>``: params,
+Adam state, BatchNorm statistics and the manager's step every N committed
+steps and at a SIGTERM drain, restored at boot through the heal loaders.
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -46,7 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchft_tpu_torch._train_common import (
-    UNPORTED,
+    DurableRegime,
     drain_signal,
     group_data_seed,
     trainer_device,
@@ -170,7 +175,12 @@ def _parse(argv=None) -> argparse.Namespace:
         help="on SIGTERM (maintenance event / preemption notice), finish the "
         "current step, gracefully leave the quorum, and exit 0",
     )
-    parser.add_argument("--durable-dir", type=str, default=None)
+    parser.add_argument(
+        "--durable-dir", type=str, default=None,
+        help="durable-snapshot directory (a group<id> subdirectory is "
+        "added): snapshots on the --durable-every cadence and at a drain, "
+        "restored at boot",
+    )
     parser.add_argument("--durable-every", type=int, default=50)
     parser.add_argument(
         "--step-min-s", type=float, default=0.0,
@@ -186,13 +196,7 @@ def _parse(argv=None) -> argparse.Namespace:
         "--device", type=str, default="cuda",
         help="torch device of this replica group (default cuda)",
     )
-    args = parser.parse_args(argv)
-    if args.durable_dir is not None:
-        parser.error(
-            "not ported to torchft_tpu_torch yet: durable_dir "
-            f"(ROADMAP.md {UNPORTED['durable_dir']})"
-        )
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
@@ -205,7 +209,7 @@ def main(argv=None) -> int:
     from torchft_tpu_torch.ddp import DistributedDataParallel
     from torchft_tpu_torch.manager import Manager, WorldSizeMode
     from torchft_tpu_torch.ops import flash_attention, quantization
-    from torchft_tpu_torch.optim import OptimizerWrapper
+    from torchft_tpu_torch.optim import OptimizerWrapper, optimizer_state_dict
     from torchft_tpu_torch.process_group import make_process_group
 
     device = trainer_device(args.device, "train_ddp")
@@ -250,6 +254,33 @@ def main(argv=None) -> int:
             model.load_batch_stats,
         )
 
+    # Durable regime (composes with live heal): a snapshot holds what the
+    # heal ships, so restore reuses the heal loaders. Groups may snapshot
+    # one step apart (each drains at its own boundary); the behind group
+    # live-heals forward at the first post-resume quorum.
+    ckpt = None
+
+    def durable_state():
+        state = {
+            "optimizer": optimizer_state_dict(opt.optimizer, device=True),
+            "manager": manager.state_dict(),
+        }
+        if has_stats:
+            state["batch_stats"] = model.batch_stats()
+        return state
+
+    if args.durable_dir:
+        ckpt = DurableRegime(
+            args.durable_dir, replica_group, every=args.durable_every
+        )
+        snap = ckpt.restore_if_any()
+        if snap is not None:
+            opt.load_state_dict(snap["optimizer"])
+            if snap.get("batch_stats") is not None:
+                model.load_batch_stats(snap["batch_stats"])
+            ckpt.restore_manager(manager, snap)
+            ckpt.log_resumed(manager.current_step())
+
     # Step-addressed data stream: stable across incarnations, resumable.
     data_seed = group_data_seed(replica_group)
     metrics = telemetry.get_metrics_logger()
@@ -272,7 +303,9 @@ def main(argv=None) -> int:
                     f"{manager.current_step()} ({why})",
                     flush=True,
                 )
-                manager.leave()
+                manager.leave()  # unblock peers first; the save is local
+                if ckpt is not None:
+                    ckpt.on_drain(manager.current_step(), durable_state)
                 drained = True
                 break
             step = manager.current_step()
@@ -320,9 +353,14 @@ def main(argv=None) -> int:
                     num_participants=manager.num_participants(),
                     committed=float(committed),
                 )
+            if committed and ckpt is not None:
+                # The factory, not the state: built only on cadence steps.
+                ckpt.on_commit(manager.current_step(), durable_state)
             if args.step_min_s > 0:
                 time.sleep(max(0.0, args.step_min_s - (time.perf_counter() - t0)))
 
+        if ckpt is not None:
+            ckpt.close()  # every snapshot on disk before the result is written
         if args.result_dir:
             os.makedirs(args.result_dir, exist_ok=True)
             # Steady-state steps only: a process's first committed step also
@@ -351,6 +389,8 @@ def main(argv=None) -> int:
                 },
                 "images_per_step": B,
                 "batch_stats_sha": stats_sha,
+                # Each durable snapshot's host copy and write seconds, bytes.
+                "durable_saves": ckpt.saves if ckpt is not None else [],
             }
             with open(
                 os.path.join(args.result_dir, f"group{replica_group}.json"), "w"
@@ -359,6 +399,8 @@ def main(argv=None) -> int:
         print(f"[group {replica_group}] done at step {manager.current_step()}")
         return 0
     finally:
+        if ckpt is not None:
+            ckpt.close()
         manager.shutdown()
 
 

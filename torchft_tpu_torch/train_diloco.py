@@ -25,6 +25,14 @@ by ``group_data_seed(group)`` and the inner step, so a relaunched group
 replays its stream. ``--quantize`` quantizes the pseudogradients on the
 host, as the JAX package does.
 
+``--durable-dir DIR`` (``--durable-every N`` outer steps, default 10) adds
+durable snapshots (``checkpointing/durable.py``) under ``DIR/group<id>``:
+the global state (``DiLoCo.state_dict``), the inner params and AdamW state,
+the position in the group's inner stream and the manager's step, at
+committed syncs on the cadence and at a SIGTERM drain. At boot the inner
+state restores over the fragment reset and the inner stream resumes where
+the snapshot left it.
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -45,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from torchft_tpu_torch._train_common import (
-    UNPORTED,
+    DurableRegime,
     drain_signal,
     group_data_seed,
     trainer_device,
@@ -94,19 +102,18 @@ def _parse(argv=None) -> argparse.Namespace:
         help="on SIGTERM (maintenance event / preemption), finish the inner "
         "step, gracefully leave the quorum at an outer boundary, exit 0",
     )
-    parser.add_argument("--durable-dir", type=str, default=None)
+    parser.add_argument(
+        "--durable-dir", type=str, default=None,
+        help="durable-snapshot directory (a group<id> subdirectory is "
+        "added): snapshots at committed syncs on the --durable-every "
+        "OUTER-step cadence and at a drain, restored at boot",
+    )
     parser.add_argument("--durable-every", type=int, default=10)
     parser.add_argument(
         "--device", type=str, default="cuda",
         help="torch device of this replica group (default cuda)",
     )
-    args = parser.parse_args(argv)
-    if args.durable_dir is not None:
-        parser.error(
-            "not ported to torchft_tpu_torch yet: durable_dir "
-            f"(ROADMAP.md {UNPORTED['durable_dir']})"
-        )
-    return args
+    return parser.parse_args(argv)
 
 
 def inner_optimizer(
@@ -204,6 +211,10 @@ def main(argv=None) -> int:
     from torchft_tpu_torch.manager import Manager
     from torchft_tpu_torch.models import Transformer, llama_debug
     from torchft_tpu_torch.ops import flash_attention, quantization
+    from torchft_tpu_torch.optim import (
+        load_optimizer_state_dict,
+        optimizer_state_dict,
+    )
     from torchft_tpu_torch.process_group import make_process_group
 
     device = trainer_device(args.device, "train_diloco")
@@ -243,14 +254,46 @@ def main(argv=None) -> int:
     data_seed = group_data_seed(replica_group)
     metrics = telemetry.get_metrics_logger()
 
+    # Durable regime: the global state (fragment backups + outer optimizer),
+    # this group's inner params and AdamW state, the next inner step of its
+    # stream, and the manager's step. Snapshots happen with no sync in
+    # flight (at committed syncs, and at a drain, which may land mid-window:
+    # the inner params then sit a few inner steps past the fragment
+    # backups), so restore needs no in-flight-sync handling.
+    ckpt = None
+    next_inner = [0]
+
+    def durable_state():
+        return {
+            "diloco": diloco.state_dict(),
+            "inner": optimizer_state_dict(optimizer, device=True),
+            "inner_step": next_inner[0],
+            "manager": manager.state_dict(),
+        }
+
+    if args.durable_dir:
+        ckpt = DurableRegime(
+            args.durable_dir, replica_group, every=args.durable_every
+        )
+        snap = ckpt.restore_if_any()
+        if snap is not None:
+            diloco.load_state_dict(snap["diloco"])
+            # The inner state restores OVER the fragment reset: the saved
+            # inner params may sit ahead of the fragment backups (a drain
+            # snapshot taken mid-window).
+            load_optimizer_state_dict(optimizer, snap["inner"])
+            next_inner[0] = int(snap["inner_step"])
+            ckpt.restore_manager(manager, snap)
+            ckpt.log_resumed(manager.current_step())
+
     def inner_iter():
+        i = next_inner[0]
         if args.outer_steps > 0:
-            i = 0
             while manager.current_step() < args.outer_steps:
                 yield i
                 i += 1
         else:
-            yield from range(args.steps)
+            yield from range(i, args.steps)
 
     drained = False
 
@@ -271,6 +314,8 @@ def main(argv=None) -> int:
             flush=True,
         )
         manager.leave()
+        if ckpt is not None:
+            ckpt.on_drain(manager.current_step(), durable_state)
         return True
 
     losses: List[float] = []
@@ -289,6 +334,7 @@ def main(argv=None) -> int:
             sync()
             t1 = time.perf_counter()
             inner_ms.append((t1 - t0) * 1e3)
+            next_inner[0] = inner + 1
             if maybe_drain():
                 drained = True
                 break
@@ -322,10 +368,14 @@ def main(argv=None) -> int:
                         committed=float(committed),
                         inner_step=inner,
                     )
+                if ckpt is not None and committed:
+                    ckpt.on_commit(manager.current_step(), durable_state)
                 if maybe_drain():
                     drained = True
                     break
 
+        if ckpt is not None:
+            ckpt.close()  # every snapshot on disk before the result is written
         final_outer = manager.current_step()
         if args.result_dir:
             os.makedirs(args.result_dir, exist_ok=True)
@@ -346,6 +396,8 @@ def main(argv=None) -> int:
                 "median_inner_ms": statistics.median(steady) if steady else None,
                 "median_sync_ms": statistics.median(sync_ms) if sync_ms else None,
                 "tokens_per_inner_step": args.batch_size * args.seq_len,
+                # Each durable snapshot's host copy and write seconds, bytes.
+                "durable_saves": ckpt.saves if ckpt is not None else [],
             }
             with open(
                 os.path.join(args.result_dir, f"group{replica_group}.json"), "w"
@@ -354,6 +406,8 @@ def main(argv=None) -> int:
         print(f"[group {replica_group}] done at outer step {final_outer}", flush=True)
         return 0
     finally:
+        if ckpt is not None:
+            ckpt.close()
         manager.shutdown()
 
 

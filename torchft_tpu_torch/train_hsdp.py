@@ -38,6 +38,19 @@ gradient allreduce: on CUDA gradients with the CUDA kernels of
 the host quantizer (the same wire bytes). Every group must pass the same
 flags.
 
+``--ckpt-transport pg-sharded`` heals over the process group instead of
+HTTP (``checkpointing/pg_transport.py`` with ``sharded=True``): params and
+AdamW state stay torch tensors on the card end to end; the sender pulls one
+leaf at a time and the receiver builds each leaf as a fresh tensor on its
+own device, which the main thread loads at the next step.
+
+``--durable-dir DIR`` (``--durable-every N``, default 10) adds durable
+snapshots (``checkpointing/durable.py``) under ``DIR/group<id>``: params,
+AdamW state and the manager's step every N committed steps and at a
+SIGTERM drain, restored at boot through the heal loader, so a job whose
+every group was preempted resumes where it drained
+(``drill.preempt_all_drill``).
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -53,7 +66,11 @@ import statistics
 import sys
 import time
 
-from torchft_tpu_torch._train_common import UNPORTED, drain_signal, trainer_device
+from torchft_tpu_torch._train_common import (
+    DurableRegime,
+    drain_signal,
+    trainer_device,
+)
 
 
 def _parse(argv=None) -> argparse.Namespace:
@@ -78,7 +95,9 @@ def _parse(argv=None) -> argparse.Namespace:
     )
     parser.add_argument("--quantize-bits", type=int, default=8, choices=(8, 4))
     parser.add_argument(
-        "--ckpt-transport", choices=["http", "pg-sharded"], default="http"
+        "--ckpt-transport", choices=["http", "pg-sharded"], default="http",
+        help="heal transport: 'http' (host numpy) or 'pg-sharded' (the "
+        "tensors leaf by leaf over the process group, built on the device)",
     )
     parser.add_argument("--result-dir", type=str, default=None)
     parser.add_argument(
@@ -86,25 +105,18 @@ def _parse(argv=None) -> argparse.Namespace:
         default=True,
         help="on SIGTERM, finish the step, leave the quorum, exit 0",
     )
-    parser.add_argument("--durable-dir", type=str, default=None)
+    parser.add_argument(
+        "--durable-dir", type=str, default=None,
+        help="durable-snapshot directory (a group<id> subdirectory is "
+        "added): snapshots on the --durable-every cadence and at a drain, "
+        "restored at boot",
+    )
     parser.add_argument("--durable-every", type=int, default=10)
     parser.add_argument(
         "--device", type=str, default="cuda",
         help="torch device of this replica group (default cuda)",
     )
-    args = parser.parse_args(argv)
-    unported = [
-        key for key, on in (
-            ("pg-sharded", args.ckpt_transport == "pg-sharded"),
-            ("durable_dir", args.durable_dir is not None),
-        ) if on
-    ]
-    if unported:
-        parser.error(
-            "not ported to torchft_tpu_torch yet: "
-            + "; ".join(f"{k} (ROADMAP.md {UNPORTED[k]})" for k in unported)
-        )
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
@@ -120,6 +132,7 @@ def main(argv=None) -> int:
     from torchft_tpu_torch.models import llama_debug, llama_moe_debug, llama_small
     from torchft_tpu_torch.ops import flash_attention, quantization
     from torchft_tpu_torch.optim import (
+        init_adam_state,
         load_optimizer_state_dict,
         optimizer_state_dict,
     )
@@ -163,10 +176,34 @@ def main(argv=None) -> int:
     optimizer = default_optimizer(model.parameters())
     params = dict(model.named_parameters())
 
+    # Heal contract. http: the recovering group receives params + AdamW
+    # state as host numpy. pg-sharded: they stay tensors on the device end
+    # to end; the sender pulls one leaf at a time and the receiver builds
+    # each leaf on the device of the matching leaf of ckpt_target().
+    sharded_heal = args.ckpt_transport == "pg-sharded"
     pg = make_process_group(timeout=30.0)
+    checkpoint_transport = None
+    if sharded_heal:
+        from torchft_tpu_torch.checkpointing.pg_transport import PGTransport
+
+        # torch's AdamW makes its state at the first step; the receiver's
+        # target needs every leaf before that (the same zeros: no bit moves).
+        init_adam_state(optimizer)
+
+        def ckpt_target():
+            # Structure mirrors Manager._manager_state_dict(); the
+            # "torchft" scalars need no device target.
+            return {
+                "user": {"default": optimizer_state_dict(optimizer, device=True)}
+            }
+
+        checkpoint_transport = PGTransport(
+            pg, timeout=60.0, state_dict_fn=ckpt_target, sharded=True
+        )
     manager = Manager(
         pg=pg,
-        state_dict=lambda: optimizer_state_dict(optimizer),
+        checkpoint_transport=checkpoint_transport,
+        state_dict=lambda: optimizer_state_dict(optimizer, device=sharded_heal),
         load_state_dict=lambda sd: load_optimizer_state_dict(optimizer, sd),
         min_replica_size=args.min_replicas,
         use_async_quorum=True,
@@ -180,6 +217,24 @@ def main(argv=None) -> int:
         "managed mesh: %r; hsdp view %s; world size %d", mm,
         mm[("replica", "fsdp")].shape(), mm.flatten(name="world").size(),
     )
+
+    # Durable regime: params + AdamW state + the manager's scalars. Restore
+    # goes through the heal loader.
+    ckpt = None
+
+    def durable_state_fn():
+        return {
+            "optimizer": optimizer_state_dict(optimizer, device=True),
+            "manager": manager.state_dict(),
+        }
+
+    if args.durable_dir:
+        ckpt = DurableRegime(args.durable_dir, group, every=args.durable_every)
+        snap = ckpt.restore_if_any()
+        if snap is not None:
+            load_optimizer_state_dict(optimizer, snap["optimizer"])
+            ckpt.restore_manager(manager, snap)
+            ckpt.log_resumed(manager.current_step())
 
     def sync() -> None:
         if device.type == "cuda":
@@ -206,6 +261,8 @@ def main(argv=None) -> int:
                     "SIGTERM" if sigterm_drain() else "operator request",
                 )
                 manager.leave()
+                if ckpt is not None:
+                    ckpt.on_drain(manager.current_step(), durable_state_fn)
                 drained = True
                 break
             t0 = time.perf_counter()
@@ -262,6 +319,10 @@ def main(argv=None) -> int:
                         num_participants=manager.num_participants(),
                         committed=1.0,
                     )
+                if ckpt is not None:
+                    ckpt.on_commit(manager.current_step(), durable_state_fn)
+        if ckpt is not None:
+            ckpt.close()  # every snapshot on disk before the result is written
         if args.result_dir:
             os.makedirs(args.result_dir, exist_ok=True)
             host = [p.detach().cpu().numpy() for p in params.values()]
@@ -299,6 +360,9 @@ def main(argv=None) -> int:
                     float(sum(g.abs().sum() for g in router_grads))
                     if router_grads else None
                 ),
+                "ckpt_transport": args.ckpt_transport,
+                # Each durable snapshot's host copy and write seconds, bytes.
+                "durable_saves": ckpt.saves if ckpt is not None else [],
             }
             with open(
                 os.path.join(args.result_dir, f"group{group}.json"), "w"
@@ -306,6 +370,8 @@ def main(argv=None) -> int:
                 json.dump(result, f)
         return 0
     finally:
+        if ckpt is not None:
+            ckpt.close()
         manager.shutdown()
 
 

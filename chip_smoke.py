@@ -54,10 +54,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    host).
 6. Path: the C++ lighthouse and two replica groups of
    ``python -m torchft_tpu_torch.train_hsdp --model small --attn flash
-   --batch 8 --seq 1024 --steps 8`` on the card; group 1 is SIGKILLed after
-   step 3 and restarted, heals from group 0, and both must end at step 8
-   with bitwise-equal parameters, finite losses, and every flash kernel
-   launched in both groups.
+   --batch 8 --seq 1024 --steps 8`` on the card, each group's one rank
+   launched as torchrun launches it (``drill.kill_heal_drill``: a torch
+   world of one NCCL rank with its own file store, the state born sharded
+   by FSDP2 over it, as in every drill below); group 1 is SIGKILLed after
+   step 3 and restarted, heals from group 0 by HTTP, and both must end at
+   step 8 with bitwise-equal parameters, finite losses, and every flash
+   kernel launched in both groups. The parameters must be the mesh-free
+   trainer's (``MESH_FREE_FLASH_SHA``, PRs 10-13: FSDP2 at one rank moves
+   no bit), and the relaunched group's journal must hold one HTTP
+   ``heal_xfer`` receive of exactly the state's bytes, worked out from
+   llama_small (params, exp_avg and exp_avg_sq in fp32 and a float32 step
+   per parameter tensor; each DTensor's local shard is the whole tensor at
+   one rank).
 7. Quantized path: the same drill with ``--quantize`` (int8); both
    quantize kernels must launch in both groups too, and the final
    parameters must differ from the unquantized drill's.
@@ -117,15 +126,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with ``--model pipeline`` and phase 13's other arguments, held as
    phase 13's.
 15. pg-sharded heal: the flash drill with ``--ckpt-transport pg-sharded``
-   (params and AdamW state stay tensors on the card; the sender pulls one
-   leaf at a time over the process group, the receiver builds each leaf on
-   its own device): it must end in the flash drill's parameters (the
-   transport moves no bit), and the relaunched group's journal must hold
-   one sharded ``heal_xfer`` receive whose bytes are the state's, worked
-   out from llama_small (params, exp_avg and exp_avg_sq in fp32 and a
-   float32 step per parameter tensor). Phase 6 journals its HTTP heal the
-   same way; both heals' seconds (elapsed, wire, serialization) and GB/s
-   print side by side.
+   (params and AdamW state stay DTensors on the card; the sender pulls one
+   local shard at a time over the process group, the receiver builds each
+   on its own device: the DTensor branch of the sharded walk): it must end
+   in the flash drill's parameters (the transport moves no bit), and the
+   relaunched group's journal must hold one sharded ``heal_xfer`` receive
+   of exactly the state's bytes, as phase 6's HTTP one; both heals'
+   seconds (elapsed, wire, serialization) and GB/s print side by side.
 16. Full-job preemption (``drill.preempt_all_drill``): the flash drill's
    groups with ``--durable-every 3 --durable-dir`` are both SIGTERMed
    after group 1's step 3 and drain with a durable snapshot (at step 4 or
@@ -135,10 +142,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    parameters (the batch of step k is seeded by k). Prints the drill's wall
    time and each snapshot's copy and write seconds; the snapshots
    (~1.50 GB each, up to 3 a group) are deleted after the phase.
-17. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
-   pg-sharded and preemption drills' launches too, the quantize rows the
-   DDP, MoE and GPipe drills'), the card line, and the last line:
-   ``{"ok": true, "device": {...}}``.
+17. Train step: ``make_train_step`` at llama_small's widths (B=8, S=1024,
+   flash, one NCCL rank) at ``accum_steps`` 1 and 2 from the same seed's
+   ``init_train_state``, each held to the mesh-free model (``grad_step`` +
+   AdamW on ``torch.manual_seed(0)``'s model) doing the same arithmetic:
+   accum 1 on the whole batch, accum 2 on the rows 0::2 and 1::2, their
+   gradients added and halved; loss, every gradient and every updated
+   parameter bit for bit (``ACCUM_LIMIT``). Two planted faults (microbatch
+   1 left out, the 1/2 dropped) must each fail that check. 12 and 24
+   launches of each flash kernel. Then seven warm grad steps + AdamW of the
+   sharded state and of the mesh-free model, in turns, and one of each
+   under torch.profiler: FSDP2's cost at one rank, split into its own host
+   time, AdamW's and the device's busy time.
+18. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
+   pg-sharded and preemption drills' and phase 17's launches too, the
+   quantize rows the DDP, MoE and GPipe drills'), the card line, and the
+   last line: ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
 or of the JAX package.
@@ -148,6 +167,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1454,6 +1474,12 @@ RING_ARGS = [a if a != "flash" else "ring" for a in PATH_ARGS]
 ULYSSES_ARGS = [a if a != "flash" else "ulysses" for a in PATH_ARGS]
 # The JAX package's model-heal drill's wire (tools/drills.py) at the sizes
 # its trainer runs these models on one chip.
+# The flash drill's parameters as the mesh-free trainer (a plain model, no
+# FSDP2; PRs 10-13) ended them: at one rank a group's FSDP2 state and its
+# steps compute the same bits.
+MESH_FREE_FLASH_SHA = (
+    "121fa4002656e04bf5c7d70f9b5fbecb9e6a8aedea8b595e4993a2ee9c885725"
+)
 SMALL_FAMILY_ARGS = [
     "--batch", "8", "--seq", "64", "--steps", "8", "--quantize",
     "--quantize-bits", "4", "--device", "cuda",
@@ -1463,11 +1489,11 @@ PIPELINE_ARGS = ["--model", "pipeline", *SMALL_FAMILY_ARGS]
 
 
 def path_phase(name: str, args, kernels, absent=(), env=None) -> dict:
-    """One kill/heal drill of two groups; raises unless both end at step 8
-    with equal parameters and finite losses, every kernel in ``kernels``
-    launched in both groups and none in ``absent``. Each group's process
-    counts its own launches from 0, so the counts are this drill's
-    alone. ``env`` goes to the groups' processes."""
+    """One kill/heal drill of two groups of one rank; raises unless both
+    end at step 8 with equal parameters and finite losses, every kernel in
+    ``kernels`` launched in both groups and none in ``absent``. Each
+    group's process counts its own launches from 0, so the counts are this
+    drill's alone. ``env`` goes to the groups' processes."""
     import shutil
 
     from torchft_tpu_torch.drill import kill_heal_drill
@@ -1486,6 +1512,8 @@ def path_phase(name: str, args, kernels, absent=(), env=None) -> dict:
     )
     wall = time.monotonic() - t0
     for g, r in results.items():
+        if [rk["world_size"] for rk in r["ranks"]] != [1]:
+            raise AssertionError(f"{name}: group {g} ranks {r['ranks']}")
         if r["final_step"] != 8:
             raise AssertionError(f"{name}: group {g} ended at step {r['final_step']}")
         if not all(math.isfinite(x) for x in r["losses"]) or not r["losses"]:
@@ -1887,6 +1915,29 @@ def llama_small_state_bytes() -> tuple:
     return nbytes, sum(p.numel() for p in params), len(params)
 
 
+def check_heals(name: str, transport: str) -> dict:
+    """Raises unless drill ``name``'s relaunched group received its heal by
+    ``transport`` ("http", or "pg" sharded) in exactly the state's bytes;
+    returns the last such receive's journal record."""
+    heals = heal_receives(name)
+    want, n_params, n_tensors = llama_small_state_bytes()
+    if not heals:
+        raise AssertionError(f"{name}: no heal_xfer receive in group 1's journal")
+    for heal in heals:
+        if heal["transport"] != transport or (
+            transport == "pg" and not heal.get("sharded")
+        ):
+            raise AssertionError(f"{name}: not a {transport} receive: {heal}")
+        if heal["nbytes"] != want:
+            raise AssertionError(
+                f"{name}: the heal received {heal['nbytes']} B, the state is "
+                f"{want} B ({n_params} parameters in {n_tensors} tensors)"
+            )
+    print(f"{name} ok: {want} B = 3 x {n_params} x 4 B + {n_tensors} steps x "
+          f"4 B received by {transport}", flush=True)
+    return heals[-1]
+
+
 def heal_line(label: str, heal: dict) -> str:
     return (f"{label} heal at step {heal['step']}: {heal['nbytes']} B, "
             f"elapsed {heal['elapsed_s']:.3f} s (wire {heal['wire_s']:.3f} s, "
@@ -1910,21 +1961,7 @@ def pg_sharded_phase(path: dict) -> tuple:
             f"drill ({runs[0]['param_sha256']} vs {path[0]['param_sha256']}): "
             "the heal transport changed bits"
         )
-    heals = heal_receives(name)
-    want, n_params, n_tensors = llama_small_state_bytes()
-    if not heals:
-        raise AssertionError(f"{name}: no heal_xfer receive in group 1's journal")
-    for heal in heals:
-        if not (heal.get("sharded") and heal["transport"] == "pg"):
-            raise AssertionError(f"{name}: not a sharded pg receive: {heal}")
-        if heal["nbytes"] != want:
-            raise AssertionError(
-                f"{name}: the heal received {heal['nbytes']} B, the state is "
-                f"{want} B ({n_params} parameters in {n_tensors} tensors)"
-            )
-    print(f"{name} ok: {want} B = 3 x {n_params} x 4 B + {n_tensors} steps x "
-          "4 B received", flush=True)
-    return runs, heals[-1]
+    return runs, check_heals(name, "pg")
 
 
 def preempt_phase(path: dict) -> dict:
@@ -1993,6 +2030,265 @@ def preempt_phase(path: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded train step (FSDP2 at one rank)
+# ---------------------------------------------------------------------------
+
+# The limit on ``make_train_step`` against the mesh-free model doing the
+# same arithmetic (``train_step_reference``): bit for bit. At accum 1 both
+# take one grad step on the whole batch; at accum 2 both take grad steps on
+# the rows 0::2 and 1::2 (the same shapes, so the same kernels and tilings
+# on both sides), add the two fp32 gradients and halve the sum (exact), and
+# both apply one AdamW step. At one rank FSDP2's all-gather and
+# reduce-scatter are copies, so nothing else differs: the largest
+# difference of the loss, of any gradient element over its leaf's largest
+# |value| and of any parameter element must be 0. Each planted fault
+# (microbatch 1 left out; the 1/2 dropped) must exceed it in the
+# gradients, or the check could not fail.
+ACCUM_LIMIT = 0.0
+TRAIN_STEP_FAULTS = {
+    "microbatch 1 left out": lambda parts: parts[0],
+    "the 1/2 dropped": lambda parts: (
+        parts[0][0] + parts[1][0],
+        {n: parts[0][1][n] + parts[1][1][n] for n in parts[0][1]},
+    ),
+}
+
+
+def halved_sum(parts) -> tuple:
+    """accum 2's arithmetic on the two microbatches' (loss, gradients)."""
+    (l0, g0), (l1, g1) = parts
+    return (l0 + l1) * 0.5, {n: (g0[n] + g1[n]).mul_(0.5) for n in g0}
+
+
+def train_step_reference(model, init, batch, rows, combine) -> tuple:
+    """(loss, gradients, parameters) of the mesh-free ``grad_step`` on each
+    of ``rows`` of ``batch``, their (loss, gradients) combined by
+    ``combine``, then one AdamW step from the parameters ``init``."""
+    import torch
+
+    from torchft_tpu_torch.parallel.train import default_optimizer, grad_step
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    parts = []
+    for r in rows:
+        loss, grads = grad_step(model, {k: v[r] for k, v in batch.items()})
+        parts.append((loss, {n: g.clone() for n, g in grads.items()}))
+    loss, grads = combine(parts)
+    optimizer = default_optimizer(model.parameters())
+    for n, p in model.named_parameters():
+        p.grad = grads[n]
+    optimizer.step()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return float(loss), grads, params
+
+
+def step_diff(got: tuple, want: tuple) -> dict:
+    """The largest differences of ``got``'s loss, gradients (each over its
+    leaf's largest |value|) and parameters from ``want``'s."""
+    (l1, g1, p1), (l2, g2, p2) = got, want
+    return {
+        "loss": abs(l1 - l2),
+        "grad": max(
+            float((g1[n] - g2[n]).abs().max()) / max(float(g2[n].abs().max()), 1e-30)
+            for n in g2
+        ),
+        "param": max(float((p1[n] - p2[n]).abs().max()) for n in p2),
+    }
+
+
+def traced_split(fn, device) -> dict:
+    """One call of ``fn`` under torch.profiler: its window, the device's
+    busy time, and the host time inside FSDP2's own ranges (its hooks,
+    gathers, reduce-scatter and the post-backward callback) and inside
+    ``Optimizer.step``, in ms (unions of intervals over the host threads)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchft_tpu_torch.profile_step import union_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(device)
+        fn()
+        torch.cuda.synchronize(device)
+    trace = OUT / "train_step_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [
+        e for e in json.loads(trace.read_text())["traceEvents"]
+        if e.get("ph") == "X" and "dur" in e
+    ]
+    trace.unlink()
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")]
+
+    def host_ms(pred) -> float:
+        return union_us(
+            (e["ts"], e["ts"] + e["dur"]) for e in host if pred(e["name"])
+        ) / 1e3
+
+    return {
+        "window_ms": (max(e["ts"] + e["dur"] for e in events)
+                      - min(e["ts"] for e in events)) / 1e3,
+        "device_busy_ms": union_us((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3,
+        "fsdp_host_ms": host_ms(
+            lambda n: n.startswith(("FSDP::", "fsdp::"))
+            or "RegisterPostBackward" in n
+        ),
+        "adamw_host_ms": host_ms(lambda n: n.startswith("Optimizer.step")),
+    }
+
+
+def train_step_phase() -> dict:
+    """Phase 17: ``make_train_step`` on the card at llama_small's widths
+    (B=8, S=1024, flash, one NCCL rank): one step at ``accum_steps`` 1 and
+    one at 2, each from a fresh ``init_train_state`` (seed 0), each held to
+    ``train_step_reference`` within ``ACCUM_LIMIT``, and each planted fault
+    of ``TRAIN_STEP_FAULTS`` held to fail that check. Counts the flash
+    launches of the two steps, then times warm steps of FSDP2 and of the
+    mesh-free model in turns and traces one of each."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import llama_small
+    from torchft_tpu_torch.ops import flash_attention
+    from torchft_tpu_torch.parallel.mesh import group_mesh, init_group
+    from torchft_tpu_torch.parallel.train import (
+        build_model,
+        default_optimizer,
+        grad_step,
+        init_train_state,
+        make_grad_step,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(
+        llama_small(), attn_impl="flash", flash_min_seq=1024, remat=False
+    )
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen, device=dev)
+    batch = {"inputs": inputs, "targets": torch.roll(inputs, -1, 1),
+             "mask": torch.ones_like(inputs, dtype=torch.int32)}
+    init_group(dev)
+    try:
+        mesh = group_mesh(1, 0, dev)
+        out = {"launches": {k: 0 for k in FLASH_KERNELS}, "ms": {}, "diff": {}}
+        steps = {}
+        for accum in (1, 2):
+            state, _ = init_train_state(cfg, mesh, dev, seed=0)
+            step = make_train_step(state, accum_steps=accum)
+            for k in flash_attention.LAUNCHES:
+                flash_attention.LAUNCHES[k] = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize(dev)
+            out["ms"][accum] = (time.perf_counter() - t0) * 1e3
+            for k in FLASH_KERNELS:
+                if flash_attention.LAUNCHES[k] != 12 * accum:
+                    raise AssertionError(
+                        f"train step accum {accum}: {k} launched "
+                        f"{flash_attention.LAUNCHES[k]} times, want {12 * accum}"
+                    )
+                out["launches"][k] += flash_attention.LAUNCHES[k]
+            named = list(state.model.named_parameters())
+            steps[accum] = (
+                float(metrics["loss"]),
+                {n: p.grad.full_tensor().clone() for n, p in named},
+                {n: p.detach().full_tensor().clone() for n, p in named},
+            )
+            if accum == 1:
+                sharded = state
+            del state, step, named
+        # The mesh-free model of the same seed, and its initial parameters.
+        torch.manual_seed(0)
+        model = build_model(cfg, mesh).to(dev)
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        whole, halves = [slice(None)], [slice(0, None, 2), slice(1, None, 2)]
+        refs = {
+            1: train_step_reference(model, init, batch, whole, lambda parts: parts[0]),
+            2: train_step_reference(model, init, batch, halves, halved_sum),
+        }
+        for accum, ref in refs.items():
+            out["diff"][accum] = step_diff(steps[accum], ref)
+        for fault, combine in TRAIN_STEP_FAULTS.items():
+            ref = train_step_reference(model, init, batch, halves, combine)
+            out["diff"][fault] = step_diff(steps[2], ref)
+        del refs, ref
+        for case, d in out["diff"].items():
+            print(f"train step {'accum ' if case in (1, 2) else 'fault: '}{case}: "
+                  f"loss {d['loss']:.3g}, worst gradient {d['grad']:.3g} of its "
+                  f"leaf's largest, worst parameter {d['param']:.3g} (limit "
+                  f"{ACCUM_LIMIT:g})", flush=True)
+        for accum in (1, 2):
+            if max(out["diff"][accum].values()) > ACCUM_LIMIT:
+                raise AssertionError(
+                    f"train step accum {accum} differs from the mesh-free "
+                    f"model's: {out['diff'][accum]}"
+                )
+        for fault in TRAIN_STEP_FAULTS:
+            if out["diff"][fault]["grad"] <= ACCUM_LIMIT:
+                raise AssertionError(
+                    f"train step: the planted fault '{fault}' passes the check"
+                )
+        print(f"train step ok: accum 1 loss {steps[1][0]:.6f} {out['ms'][1]:.1f} ms, "
+              f"accum 2 loss {steps[2][0]:.6f} {out['ms'][2]:.1f} ms, bit for bit "
+              f"({len(steps[1][1])} gradients and parameters); launches "
+              f"{out['launches']}", flush=True)
+        out["loss"] = (steps[1][0], steps[2][0])
+        del steps
+        # FSDP2's cost at one rank: warm steps of the sharded state and of
+        # the mesh-free model on the same batch, in turns (medians of 7),
+        # each the trainer's work without the allreduce: the grad step,
+        # then AdamW.
+        fsdp_grad_step = make_grad_step(sharded)
+        optimizer = default_optimizer(model.parameters())
+        sides = {
+            "fsdp2": (lambda: fsdp_grad_step(batch), sharded.optimizer.step),
+            "mesh_free": (lambda: grad_step(model, batch), optimizer.step),
+        }
+
+        def timed(fn) -> float:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            return (time.perf_counter() - t0) * 1e3
+
+        for grad, opt in sides.values():  # the mesh-free AdamW's first step
+            grad()
+            opt()
+        ms = {side: {"grad": [], "adamw": []} for side in sides}
+        for _ in range(7):
+            for side, (grad, opt) in sides.items():
+                ms[side]["grad"].append(timed(grad))
+                ms[side]["adamw"].append(timed(opt))
+        out["steady_ms"] = {
+            side: {k: statistics.median(v) for k, v in parts.items()}
+            for side, parts in ms.items()
+        }
+        out["trace"] = {
+            side: traced_split(lambda: (grad(), opt()), dev)
+            for side, (grad, opt) in sides.items()
+        }
+        for side in sides:
+            steady, trace = out["steady_ms"][side], out["trace"][side]
+            print(f"warm {side}: grad step {steady['grad']:.1f} ms "
+                  f"{[round(x, 1) for x in ms[side]['grad']]}, AdamW "
+                  f"{steady['adamw']:.1f} ms {[round(x, 1) for x in ms[side]['adamw']]}; "
+                  f"traced step: window {trace['window_ms']:.1f} ms, device busy "
+                  f"{trace['device_busy_ms']:.1f} ms, host in FSDP2 "
+                  f"{trace['fsdp_host_ms']:.1f} ms, in AdamW "
+                  f"{trace['adamw_host_ms']:.1f} ms", flush=True)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -2015,7 +2311,13 @@ def main() -> int:
     records.update(quantize_phase())
     records["reduce"], harness = reduce_phase()
     path = path_phase("path", PATH_ARGS, FLASH_KERNELS, env=journal_env("path"))
-    http_heals = heal_receives("path")
+    if path[0]["param_sha256"] != MESH_FREE_FLASH_SHA:
+        raise AssertionError(
+            f"the flash drill ended in {path[0]['param_sha256']}, not in the "
+            f"mesh-free trainer's parameters {MESH_FREE_FLASH_SHA}: FSDP2 at "
+            "one rank moved bits"
+        )
+    http_heal = check_heals("path", "http")
     quantized = path_phase(
         "quantized path", [*PATH_ARGS, "--quantize"], FLASH_KERNELS + QUANT_KERNELS
     )
@@ -2059,10 +2361,10 @@ def main() -> int:
         absent=FLASH_KERNELS + BLOCK_KERNELS,
     )
     pg_sharded, pg_heal = pg_sharded_phase(path)
-    for heal in http_heals:
-        print(heal_line("http (phase 6)", heal), flush=True)
+    print(heal_line("http (phase 6)", http_heal), flush=True)
     print(heal_line("pg-sharded (phase 15)", pg_heal), flush=True)
     preempt = preempt_phase(path)
+    train_step = train_step_phase()
     for g in (0, 1):
         a, b, c, d, e = path[g], quantized[g], ring[g], ulysses[g], pg_sharded[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
@@ -2095,8 +2397,8 @@ def main() -> int:
             launches += sum(more.values())
             rec = {**rec, "localsgd_launches": localsgd["launches"][name], **more}
         if name in FLASH_KERNELS:
-            # The Ulysses, pg-sharded and preemption drills run the
-            # whole-sequence kernels too.
+            # The Ulysses, pg-sharded and preemption drills and phase 17's
+            # train steps run the whole-sequence kernels too.
             more = {
                 "ulysses_launches": sum(
                     ulysses[g]["kernel_launches"][name] for g in (0, 1)
@@ -2108,6 +2410,7 @@ def main() -> int:
                     preempt[phase][g]["kernel_launches"][name]
                     for phase in ("drain", "resume") for g in (0, 1)
                 ),
+                "train_step_launches": train_step["launches"][name],
             }
             launches += sum(more.values())
             rec = {**rec, **more}

@@ -165,9 +165,18 @@ def test_check_cfg_refuses_what_jax_refuses(overrides, pp):
 
 
 def test_pipeline_refuses_dp_and_an_uneven_batch():
+    """dp is a process axis: a mesh with dp=2 pipelines the rows this rank
+    holds, as the pp=2 mesh alone does. A batch that does not split into
+    the microbatches still raises."""
     _, tcfg = _small(num_layers=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: parallel/sharding.py"):
-        make_pipeline_loss(tcfg, make_mesh(pp=2, dp=2, devices=[CPU] * 4), 2)
+    model = Transformer(tcfg)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, tcfg.vocab_size, (4, 8), generator=gen)
+    batch = {"inputs": x, "targets": x.roll(-1, 1), "mask": torch.ones_like(x)}
+    with torch.no_grad():
+        sharded = make_pipeline_loss(tcfg, make_mesh(pp=2, dp=2, devices=[CPU] * 4), 2)
+        alone = make_pipeline_loss(tcfg, make_mesh(pp=2, devices=[CPU] * 2), 2)
+        assert torch.equal(sharded(model, batch), alone(model, batch))
     loss_fn = make_pipeline_loss(tcfg, make_mesh(pp=2, devices=[CPU] * 2), 3)
     x = torch.zeros(4, 8, dtype=torch.long)
     with pytest.raises(ValueError, match="not divisible by n_micro 3"):

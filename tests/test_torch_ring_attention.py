@@ -215,9 +215,17 @@ def test_flash_fold_autoselect_matches_jax():
 
 
 def test_ring_refuses_sharded_batch_or_heads():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_ring_attention(make_mesh(fsdp=2, sp=2, devices=[CPU] * 4))
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """dp and fsdp are process axes: a mesh with fsdp=2 runs the ring over
+    the rows this rank holds, as the sp=2 mesh alone does. Head sharding
+    (tp) still raises, under the tensor-parallelism item."""
+    q, k, v = (torch.from_numpy(a) for a in _arrays((2, 64, 2, 8), (2, 64, 1, 8), (2, 64, 1, 8)))
+    sharded = make_ring_attention(make_mesh(fsdp=2, sp=2, devices=[CPU] * 4))
+    alone = make_ring_attention(make_mesh(sp=2, devices=[CPU] * 2))
+    assert torch.equal(sharded(q, k, v), alone(q, k, v))
+    with pytest.raises(
+        NotImplementedError,
+        match="ROADMAP.md queue 1: tensor and expert parallelism across ranks",
+    ):
         make_ring_attention(make_mesh(sp=2, tp=2, devices=[CPU] * 4))
 
 
@@ -345,8 +353,10 @@ def test_managed_mesh_sizes_ranks_and_views():
     assert mm.flatten(name="world") is world
     with pytest.raises(ValueError, match="already registered"):
         mm.flatten(("fsdp",), name="world")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        view.partition_spec()
+    # The view's inner axes, the replica axis left out, as JAX's
+    # PartitionSpec holds them.
+    assert view.partition_spec() == ("fsdp",)
+    assert mm[("replica", "fsdp", "sp")].partition_spec() == ("fsdp", "sp")
     with pytest.raises(ValueError, match="no managed axis"):
         mm["fsdp"].allreduce_grads({})
     assert tdm.ManagedMesh(_FakeManager(0, None), mesh)[("replica",)].rank() is None

@@ -12,9 +12,12 @@ import zlib
 
 
 def trainer_device(name: str, prog: str):
-    """``torch.device(name)``, a CUDA one with its index resolved. Exits
-    naming ``--device cpu`` when ``name`` is CUDA and no card is visible:
-    the trainers never fall back to the CPU on their own."""
+    """``torch.device(name)``, a CUDA one with its index resolved: torchrun's
+    ``LOCAL_RANK`` where the launcher set it (each rank of a group on a
+    card of its own), else the current device. Exits naming ``--device
+    cpu`` when ``name`` is CUDA and no card is visible, and when
+    ``LOCAL_RANK`` names a card that is not there: the trainers never fall
+    back on their own."""
     import torch
 
     device = torch.device(name)
@@ -25,7 +28,17 @@ def trainer_device(name: str, prog: str):
                 "on the CPU"
             )
         if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+            local_rank = os.environ.get("LOCAL_RANK")
+            index = (
+                int(local_rank) if local_rank is not None
+                else torch.cuda.current_device()
+            )
+            if index >= torch.cuda.device_count():
+                raise SystemExit(
+                    f"{prog}: LOCAL_RANK={index} but {torch.cuda.device_count()} "
+                    "CUDA devices are visible; run one rank per card"
+                )
+            device = torch.device("cuda", index)
     return device
 
 
@@ -82,14 +95,22 @@ class DurableRegime:
     ``state_factory`` must return the snapshot tree; it is called only when
     a save actually happens (off-cadence steps pay nothing). The snapshot
     copies the state before ``save`` returns, so the factory may hand over
-    live tensors."""
+    live tensors.
 
-    def __init__(self, directory, replica_group: str, every: int):
+    ``rank``: the rank in a replica group whose state is sharded over its
+    ranks; each rank snapshots its own shards under ``group<id>/rank<r>``.
+    None (a group that holds its state whole) uses ``group<id>``."""
+
+    def __init__(
+        self, directory, replica_group: str, every: int,
+        rank: "int | None" = None,
+    ):
         from torchft_tpu_torch.checkpointing import DurableCheckpointer
 
-        self._ckpt = DurableCheckpointer(
-            os.path.join(directory, f"group{replica_group}"), every=every
-        )
+        path = os.path.join(directory, f"group{replica_group}")
+        if rank is not None:
+            path = os.path.join(path, f"rank{rank}")
+        self._ckpt = DurableCheckpointer(path, every=every)
         self._group = replica_group
 
     def restore_if_any(self):

@@ -51,6 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from torchft_tpu_torch._dtensor import is_dtensor
 from torchft_tpu_torch.checkpointing._serialization import (
     _is_torch_tensor,
     dtype_name,
@@ -157,9 +158,12 @@ def check_fingerprint(saved: Dict[str, Any], live: Dict[str, Any]) -> None:
 def _owned_host_copy(x: Any) -> Any:
     """``x`` with every array leaf copied to host memory that no one else
     holds: a device tensor is pulled (a fresh host tensor), a CPU tensor
-    cloned, a numpy array copied."""
+    cloned, a numpy array copied; a DTensor is its local shard (each rank
+    snapshots its own)."""
     if _is_torch_tensor(x):
         t = x.detach()
+        if is_dtensor(t):
+            t = t.to_local()
         return t.clone() if t.device.type == "cpu" else t.cpu()
     if isinstance(x, np.ndarray):
         return np.array(x, copy=True)

@@ -8,18 +8,25 @@ its whole state on the host. Each leaf moves device->host one at a time
 (:func:`split_state_sharded_lazy`), and the receiver rebuilds each leaf on
 its own device (:func:`build_sharded_leaf`).
 
-In this package a torch tensor, on any device, is a leaf with ONE
-addressable shard: the whole tensor. Its shard key is the whole-tensor
-slice, which is what JAX writes for a single-device array
-(``(("s", None, None, None),) * ndim``; ``()`` for a 0-d tensor), and its
-``slot_map`` is ``[0]``. A numpy leaf stays a plain ``_TensorRef``.
-DTensor local shards would add one branch to the walk, over the same
-``_ShardedRef`` fields.
+In this package a leaf has ONE addressable shard on each rank, and its
+``slot_map`` is ``[0]``:
+
+- a torch tensor, on any device: the whole tensor, keyed by the
+  whole-tensor slice, which is what JAX writes for a single-device array
+  (``(("s", None, None, None),) * ndim``; ``()`` for a 0-d tensor);
+- a DTensor (a parameter or AdamW moment FSDP2 shards over the group's
+  ranks): its local shard, keyed by the shard's global slice in the form
+  JAX writes for a device array's shard (``("s", start, stop, None)`` on a
+  split dim, ``("s", None, None, None)`` on a whole one). Rank r of the
+  sender sends to rank r of the receiver, which must hold the same slice.
+
+A numpy leaf stays a plain ``_TensorRef``.
 
 The receiver builds a FRESH tensor on the target leaf's device, in the
-checkpoint's dtype. It never writes into the target: the receive runs on
-the manager's quorum thread while the main thread's autograd may hold the
-live tensors, and the healed state applies on the main thread
+checkpoint's dtype (for a DTensor target, a fresh local shard wrapped with
+the target's placements). It never writes into the target: the receive
+runs on the manager's quorum thread while the main thread's autograd may
+hold the live tensors, and the healed state applies on the main thread
 (``Manager._apply_pending_state_dict``).
 """
 
@@ -31,6 +38,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from torchft_tpu_torch._dtensor import is_dtensor
 from torchft_tpu_torch.checkpointing._serialization import (
     _is_array,
     _is_torch_tensor,
@@ -71,6 +79,20 @@ def _index_key(index: Tuple) -> Tuple:
 def _whole_key(ndim: int) -> Tuple:
     """The shard key of a tensor's one shard: the whole-tensor slice."""
     return _index_key((slice(None),) * ndim)
+
+
+def _shard_key(t: Any) -> Tuple:
+    """The shard key of a leaf's one shard on this rank: a DTensor's local
+    slice (a dim it holds whole as ``slice(None)``, as JAX writes it), or
+    the whole-tensor slice."""
+    if not is_dtensor(t):
+        return _whole_key(len(t.shape))
+    from torchft_tpu_torch.parallel.sharding import local_slices
+
+    return _index_key(tuple(
+        slice(None) if (s.start, s.stop) == (0, n) else s
+        for s, n in zip(local_slices(t), t.shape)
+    ))
 
 
 def _pull(t: Any) -> np.ndarray:
@@ -114,12 +136,12 @@ def split_state_sharded_lazy(
 
     def walk(x: Any) -> Any:
         if _is_torch_tensor(x):
-            shape = tuple(x.shape)
+            local = x.to_local() if is_dtensor(x) else x
             first = len(thunks)
-            thunks.append(_accounted(lambda x=x: _pull(x), first))
+            thunks.append(_accounted(lambda t=local: _pull(t), first))
             return _ShardedRef(
-                first, [shape], [0], dtype_name(x), shape,
-                [_whole_key(len(shape))],
+                first, [tuple(local.shape)], [0], dtype_name(local),
+                tuple(x.shape), [_shard_key(x)],
             )
         if _is_array(x) and not np.isscalar(x):
             arr = np.asarray(x)
@@ -156,8 +178,10 @@ def build_sharded_leaf(
     delete_target_leaf: bool = False,
 ) -> Any:
     """Builds ONE leaf from its unique-shard host buffers: a fresh tensor on
-    ``target_leaf``'s device, in the checkpoint's dtype. The target only
-    names the device and is checked for shape; it is never written.
+    ``target_leaf``'s device, in the checkpoint's dtype (for a DTensor
+    target, a fresh local shard wrapped as a DTensor with the target's
+    placements). The target only names the device and the shard and is
+    checked for shape; it is never written.
 
     ``delete_target_leaf=True`` frees the target's storage once the new
     leaf is built (peak device memory = old state + one leaf): only for a
@@ -178,7 +202,7 @@ def build_sharded_leaf(
             f"target has 1 addressable devices, checkpoint leaf has "
             f"{len(m.slot_map)} slots"
         )
-    key = _whole_key(len(m.global_shape))
+    key = _shard_key(target_leaf)
     key_to_buf = {tuple(k): i for i, k in enumerate(m.keys)}
     if key not in key_to_buf:
         raise ValueError(
@@ -194,9 +218,17 @@ def build_sharded_leaf(
         if not leaf.flags.writeable:
             leaf = leaf.copy()
         leaf = torch.from_numpy(leaf)
-    out = leaf.to(target_leaf.device, copy=leaf.device == target_leaf.device)
+    local = target_leaf.to_local() if is_dtensor(target_leaf) else target_leaf
+    out = leaf.to(local.device, copy=leaf.device == local.device)
+    if is_dtensor(target_leaf):
+        from torch.distributed.tensor import DTensor
+
+        out = DTensor.from_local(
+            out, target_leaf.device_mesh, target_leaf.placements,
+            shape=target_leaf.shape, stride=target_leaf.stride(),
+        )
     if delete_target_leaf:
-        target_leaf.untyped_storage().resize_(0)
+        local.untyped_storage().resize_(0)
     return out
 
 

@@ -7,6 +7,11 @@ them *across replica groups*, bucketed exactly as the JAX package buckets
 (``collectives.bucketize``: flat per-dtype buckets up to ``bucket_cap_mb``),
 flattened on the device, one device->host copy per bucket, with the buckets'
 allreduces in flight together.
+
+A gradient may be a DTensor (a replica group sharded by FSDP2,
+``parallel/train.py``): each rank puts its local shard on the wire, so rank
+r of every replica group averages the same slice, and gets back a DTensor
+with the gradient's placements.
 """
 
 from __future__ import annotations
@@ -17,8 +22,21 @@ import torch
 
 from torchft_tpu_torch.collectives import takes_device_path
 from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch._dtensor import is_dtensor, local as _local
 
 Grads = Dict[str, torch.Tensor]
+
+
+def _like(g: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as ``g`` is: a DTensor with ``g``'s placements where ``g``
+    is one, else itself."""
+    if not is_dtensor(g):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(
+        local, g.device_mesh, g.placements, shape=g.shape, stride=g.stride()
+    )
 
 
 class DistributedDataParallel:
@@ -89,7 +107,7 @@ class DistributedDataParallel:
         # ``tree_flatten`` takes a dict's keys, so a port replica and a JAX
         # replica fill the same buckets with the same leaves.
         names = sorted(grads)
-        leaves = [grads[n].detach() for n in names]
+        leaves = [_local(grads[n].detach()) for n in names]
         buckets = self._bucketize(leaves)
         if should_quantize and not self._error_feedback and takes_device_path(
             leaves
@@ -109,7 +127,7 @@ class DistributedDataParallel:
             for work, idx_list in works:
                 for i, reduced in zip(idx_list, work.wait()):
                     out[names[i]] = reduced
-            return {n: out[n] for n in grads}
+            return {n: _like(grads[n], out[n]) for n in grads}
         flats = [
             torch.cat([leaves[i].reshape(-1) for i in idx_list])
             for idx_list in buckets
@@ -165,7 +183,7 @@ class DistributedDataParallel:
                     leaves[i].shape
                 )
                 offset += n
-        return {n: out[n] for n in grads}
+        return {n: _like(grads[n], out[n]) for n in grads}
 
     def _bucketize(self, tensors: List[torch.Tensor]) -> List[List[int]]:
         from torchft_tpu_torch.collectives import bucketize
@@ -184,6 +202,7 @@ class PureDistributedDataParallel:
 
     def allreduce_grads(self, grads: Grads) -> Grads:
         works = {
-            n: self._manager.allreduce(grads[n].detach()) for n in sorted(grads)
+            n: self._manager.allreduce(_local(grads[n].detach()))
+            for n in sorted(grads)
         }
-        return {n: works[n].wait()[0] for n in grads}
+        return {n: _like(grads[n], works[n].wait()[0]) for n in grads}

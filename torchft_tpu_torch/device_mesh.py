@@ -4,16 +4,20 @@ The port of ``torchft_tpu/device_mesh.py`` (reference:
 ``torchft/device_mesh.py:50-336``, ``ManagedDeviceMesh`` /
 ``ft_init_device_mesh``). A :class:`ManagedMesh` pairs
 
-- the inner :class:`~torchft_tpu_torch.parallel.mesh.Mesh` over this replica
-  group's devices (static axes dp/pp/fsdp/ep/sp/tp), and
+- the inner :class:`~torchft_tpu_torch.parallel.mesh.Mesh` of this replica
+  group (static axes): ``dp`` and ``fsdp`` are process axes, over the
+  group's ranks (one device each; FSDP2 shards the state over them), and
+  ``pp``, ``ep``, ``sp`` and ``tp`` in-process axes, over the devices of
+  each rank's process (``parallel/mesh.py``); and
 - the Manager's dynamic replica axis, sized by the live quorum
-  (``num_participants``), which carries the outer gradient average.
+  (``num_participants``), which carries the outer gradient average. Each
+  rank of a group runs its own Manager, and rank r of every group averages
+  its own shards with the others' rank r.
 
 It answers the questions a trainer holds a mesh for (axis sizes including
-the dynamic replica axis, coordinates, composite ranks, sub-axis views) and
-carries the outer collective (``allreduce_grads``, the port's
-``DistributedDataParallel``). Shardings over the inner axes are not ported
-(``partition_spec`` raises).
+the dynamic replica axis, coordinates, composite ranks, sub-axis views,
+the inner axes a view shards over) and carries the outer collective
+(``allreduce_grads``, the port's ``DistributedDataParallel``).
 """
 
 from __future__ import annotations
@@ -25,10 +29,7 @@ import torch
 
 from torchft_tpu_torch.ddp import DistributedDataParallel
 from torchft_tpu_torch.manager import Manager
-from torchft_tpu_torch.parallel.mesh import Mesh
-
-# Sharding over the inner axes.
-SHARDING_ITEM = "ROADMAP.md queue 1: parallel/sharding.py + FSDP2"
+from torchft_tpu_torch.parallel.mesh import PROCESS_AXES, Mesh
 
 
 class MeshView:
@@ -112,12 +113,11 @@ class MeshView:
             rank = rank * self._axis_size(n) + int(c)
         return rank
 
-    def partition_spec(self) -> Any:
-        """Raises: shardings over the inner axes are not ported."""
-        raise NotImplementedError(
-            f"partition_spec of view {self.names}: sharding inside a "
-            f"replica group is not ported ({SHARDING_ITEM})"
-        )
+    def partition_spec(self) -> Tuple[str, ...]:
+        """The view's INNER axes in order, as a plain tuple of axis names
+        (the JAX package's ``PartitionSpec`` of them): the replica axis is
+        the Manager's, never an axis a tensor is sharded over."""
+        return tuple(n for n in self.names if n != ManagedMesh.REPLICA_AXIS)
 
     # -- collectives -------------------------------------------------------
 
@@ -242,14 +242,22 @@ class ManagedMesh:
     def device_coordinate(self, device: Any = None) -> Dict[str, int]:
         """``device``'s per-axis position in the inner mesh (default: the
         mesh's first device; every torch device is local to its process).
-        Raises where the device is not in the mesh, or appears more than
-        once (a mesh that repeats one device gives it no single
-        coordinate)."""
+        In a group of processes (``mesh.process_rank`` set) the process
+        axes read this process's rank, and the device is looked up among
+        the in-process axes at that coordinate. Raises where the device is
+        not there, or appears more than once (a mesh that repeats one
+        device over an in-process axis gives it no single coordinate)."""
         key = None if device is None else torch.device(device)
         cached = self._coord_cache.get(key)
         if cached is not None:
             return dict(cached)
         devs = self.mesh.devices
+        names = self.mesh.axis_names
+        fixed: Dict[str, int] = {}
+        if self.mesh.process_rank is not None:
+            fixed = self.mesh.process_coordinate()
+            devs = devs[tuple(fixed.get(a, slice(None)) for a in names)]
+            names = tuple(a for a in names if a not in PROCESS_AXES)
         target = devs.flat[0] if key is None else key
         hits = [
             pos for pos, d in np.ndenumerate(devs) if d == target
@@ -259,7 +267,8 @@ class ManagedMesh:
                 f"device {target} appears {len(hits)} times in mesh "
                 f"{self.mesh}; a coordinate needs exactly one"
             )
-        coords = {a: int(i) for a, i in zip(self.mesh.axis_names, hits[0])}
+        coords = {**fixed, **{a: int(i) for a, i in zip(names, hits[0])}}
+        coords = {a: coords[a] for a in self.mesh.axis_names}
         self._coord_cache[key] = coords
         return dict(coords)
 

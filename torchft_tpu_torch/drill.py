@@ -7,7 +7,14 @@ and by the CPU integration tests:
 - :func:`preempt_all_drill`: a full-job preemption (the twin of the JAX
   package's ``tools/drills.py preempt-all``): every group is SIGTERMed at
   once and drains with a durable snapshot, then the whole job relaunches
-  against a FRESH lighthouse and resumes from the snapshots."""
+  against a FRESH lighthouse and resumes from the snapshots.
+
+A group is ``ranks_per_group`` processes (default 1), each launched with
+the torchrun environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``/``MASTER_PORT`` for rank 0's Manager store) and the group's
+own torch rendezvous (``GROUP_INIT_METHOD``, a file store fresh for each
+launch of the group); a fault hits every rank of the group. Rank 0 logs to
+``group<g>.log``, rank r to ``group<g>_rank<r>.log``."""
 
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import json
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -48,6 +56,65 @@ def _spawn(
         )
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Group:
+    """The ``ranks`` processes of one replica group, launched with the
+    torchrun environment."""
+
+    def __init__(
+        self, trainer: str, group: int, trainer_args: Sequence[str],
+        lighthouse: str, logs: Path, env: Optional[Dict[str, str]],
+        ranks: int, launch: int,
+    ) -> None:
+        self.log = logs / f"group{group}.log"
+        store = (logs / f"group{group}.launch{launch}.store").resolve()
+        store.unlink(missing_ok=True)
+        common = {
+            **(env or {}),
+            "WORLD_SIZE": str(ranks),
+            "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(_free_port()),
+            "GROUP_INIT_METHOD": f"file://{store}",
+        }
+        self.procs = [
+            _spawn(
+                trainer, group, trainer_args, lighthouse,
+                self.log if r == 0 else logs / f"group{group}_rank{r}.log",
+                {**common, "RANK": str(r), "LOCAL_RANK": str(r)},
+            )
+            for r in range(ranks)
+        ]
+
+    def poll(self) -> Optional[int]:
+        """None while every rank runs, else the first exit code seen."""
+        for proc in self.procs:
+            if proc.poll() is not None:
+                return proc.returncode
+        return None
+
+    def wait(self, timeout: float) -> int:
+        """The group's exit code: 0 when every rank exits 0."""
+        deadline = time.monotonic() + timeout
+        rcs = [
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            for proc in self.procs
+        ]
+        return next((rc for rc in rcs if rc != 0), 0)
+
+    def signal(self, sig: int) -> None:
+        for proc in self.procs:
+            os.kill(proc.pid, sig)
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            _stop(proc)
+
+
 def _stop(proc: subprocess.Popen) -> None:
     if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
@@ -67,14 +134,15 @@ def _lighthouse():
 
 
 def _wait_for_mark(
-    proc: subprocess.Popen, log: Path, mark: str, deadline: float, what: str
+    group: _Group, mark: str, deadline: float, what: str
 ) -> None:
-    """Returns once ``log`` holds ``mark``; raises if ``proc`` exits first
-    or ``deadline`` passes."""
-    while mark not in log.read_text(errors="replace"):
-        if proc.poll() is not None:
+    """Returns once the group's rank-0 log holds ``mark``; raises if a rank
+    exits first or ``deadline`` passes."""
+    while mark not in group.log.read_text(errors="replace"):
+        rc = group.poll()
+        if rc is not None:
             raise RuntimeError(
-                f"group 1 exited ({proc.returncode}) before {what}; see {log}"
+                f"group 1 exited ({rc}) before {what}; see {group.log}"
             )
         if time.monotonic() > deadline:
             raise TimeoutError(f"group 1 never reached {what}")
@@ -82,27 +150,39 @@ def _wait_for_mark(
 
 
 def _wait_all(
-    procs: List[subprocess.Popen], deadline: float, timeout_s: float
+    groups: List[_Group], deadline: float, timeout_s: float
 ) -> List[int]:
-    """Each process's exit code; raises if one outlasts ``deadline``."""
+    """Each group's exit code; raises if one outlasts ``deadline``."""
     rcs = []
-    for g, proc in enumerate(procs):
+    for g, group in enumerate(groups):
         left = max(deadline - time.monotonic(), 1.0)
         try:
-            rcs.append(proc.wait(timeout=left))
+            rcs.append(group.wait(left))
         except subprocess.TimeoutExpired:
             raise TimeoutError(f"group {g} did not finish in {timeout_s}s")
     return rcs
 
 
-def _read_results(result_dir: str) -> Dict[int, Optional[dict]]:
+def _read_results(result_dir: str, ranks: int) -> Dict[int, Optional[dict]]:
+    """{group: rank 0's result JSON}, None where it is missing; each result
+    carries ``"ranks"``: every rank's, in order (rank 0's without
+    ``"ranks"``)."""
+    def read(name: str) -> Optional[dict]:
+        try:
+            with open(os.path.join(result_dir, f"{name}.json")) as f:
+                return json.load(f)
+        except OSError:
+            return None
+
     results: Dict[int, Optional[dict]] = {}
     for g in range(2):
-        try:
-            with open(os.path.join(result_dir, f"group{g}.json")) as f:
-                results[g] = json.load(f)
-        except OSError:
-            results[g] = None
+        first = read(f"group{g}")
+        results[g] = first and {
+            **first,
+            "ranks": [first] + [
+                read(f"group{g}_rank{r}") for r in range(1, ranks)
+            ],
+        }
     return results
 
 
@@ -115,13 +195,16 @@ def kill_heal_drill(
     env: Optional[Dict[str, str]] = None,
     trainer: str = "torchft_tpu_torch.train_hsdp",
     mark: str = "[group 1] step {n} loss",
+    ranks_per_group: int = 1,
 ) -> Dict[int, dict]:
     """Runs groups 0 and 1 of ``python -m <trainer> <trainer_args>
     --min-replicas 2 --result-dir <result_dir>``; once group 1's log shows
     ``mark`` formatted with ``n=kill_after_step`` (its progress line for
     that step; ``train_diloco``'s is ``"outer_step={n} loss"`` and
     ``train_ddp``'s ``"[group 1] step={n} loss="``) it is SIGKILLed and
-    restarted at once. Returns {group: result JSON}; raises
+    restarted at once: every one of its ``ranks_per_group`` ranks (see the
+    module docstring). Returns {group: rank 0's result JSON}, each with
+    ``"ranks"`` (every rank's); raises
     if a group fails or the drill outlasts ``timeout_s``. Every process it
     starts is stopped before it returns."""
     result_dir = os.path.abspath(result_dir)  # the trainers run in the repo root
@@ -129,35 +212,35 @@ def kill_heal_drill(
     logs.mkdir(parents=True, exist_ok=True)
     args = [*trainer_args, "--min-replicas", "2", "--result-dir", result_dir]
     lighthouse = _lighthouse()
-    procs: List[subprocess.Popen] = []
+    groups: List[_Group] = []
     deadline = time.monotonic() + timeout_s
+
+    def launch(g: int, n: int) -> _Group:
+        return _Group(
+            trainer, g, args, lighthouse.address(), logs, env,
+            ranks_per_group, n,
+        )
+
     try:
-        for g in range(2):
-            procs.append(
-                _spawn(
-                    trainer, g, args, lighthouse.address(),
-                    logs / f"group{g}.log", env,
-                )
-            )
-        victim_log = logs / "group1.log"
+        groups = [launch(g, 0) for g in range(2)]
         _wait_for_mark(
-            procs[1], victim_log, mark.format(n=kill_after_step), deadline,
+            groups[1], mark.format(n=kill_after_step), deadline,
             f"step {kill_after_step}",
         )
-        _stop(procs[1])
-        with open(victim_log, "a") as f:
+        groups[1].stop()
+        with open(groups[1].log, "a") as f:
             f.write(f"\n=== SIGKILLed after step {kill_after_step}; restart ===\n")
-        procs[1] = _spawn(trainer, 1, args, lighthouse.address(), victim_log, env)
-        for g, rc in enumerate(_wait_all(procs, deadline, timeout_s)):
+        groups[1] = launch(1, 1)
+        for g, rc in enumerate(_wait_all(groups, deadline, timeout_s)):
             if rc != 0:
                 raise RuntimeError(
                     f"group {g} exited {rc}; see {logs / f'group{g}.log'}"
                 )
     finally:
-        for proc in procs:
-            _stop(proc)
+        for group in groups:
+            group.stop()
         lighthouse.shutdown()
-    results = _read_results(result_dir)
+    results = _read_results(result_dir, ranks_per_group)
     for g, r in results.items():
         if r is None:
             raise RuntimeError(f"group {g} wrote no result in {result_dir}")
@@ -192,13 +275,14 @@ def preempt_all_drill(
     term_after_step: int = 3,
     timeout_s: float = 600.0,
     env: Optional[Dict[str, str]] = None,
+    ranks_per_group: int = 1,
 ) -> dict:
     """Full-job preemption: runs groups 0 and 1 of ``python -m <trainer>
     <trainer_args> --min-replicas 2 --result-dir ...`` (``trainer_args``
     must carry ``--durable-dir``); once group 1's log shows its progress
-    line for ``term_after_step``, SIGTERMs BOTH groups. Each drains at its
-    next step boundary with a final durable snapshot. Then the whole job
-    relaunches from scratch, against a FRESH lighthouse (total
+    line for ``term_after_step``, SIGTERMs BOTH groups (every rank). Each
+    drains at its next step boundary with a final durable snapshot. Then
+    the whole job relaunches from scratch, against a FRESH lighthouse (total
     control-plane loss): only the snapshots connect the two phases. Groups
     may snapshot one step apart; the behind group live-heals forward at
     the first quorum after the resume.
@@ -221,30 +305,29 @@ def preempt_all_drill(
         logs.mkdir(parents=True, exist_ok=True)
         args = [*trainer_args, "--min-replicas", "2", "--result-dir", phase_dir]
         lighthouse = _lighthouse()
-        procs: List[subprocess.Popen] = []
+        groups: List[_Group] = []
         try:
-            for g in range(2):
-                procs.append(
-                    _spawn(
-                        trainer, g, args, lighthouse.address(),
-                        logs / f"group{g}.log", env,
-                    )
+            groups = [
+                _Group(
+                    trainer, g, args, lighthouse.address(), logs, env,
+                    ranks_per_group, 0,
                 )
+                for g in range(2)
+            ]
             if phase == "drain":
                 _wait_for_mark(
-                    procs[1], logs / "group1.log",
-                    mark.format(n=term_after_step), deadline,
+                    groups[1], mark.format(n=term_after_step), deadline,
                     f"the kill window (step {term_after_step})",
                 )
-                for g, proc in enumerate(procs):
-                    _require(proc.poll() is None, f"SIGTERM {g} failed")
-                    os.kill(proc.pid, signal.SIGTERM)
-            rcs = _wait_all(procs, deadline, timeout_s)
+                for g, group in enumerate(groups):
+                    _require(group.poll() is None, f"SIGTERM {g} failed")
+                    group.signal(signal.SIGTERM)
+            rcs = _wait_all(groups, deadline, timeout_s)
         finally:
-            for proc in procs:
-                _stop(proc)
+            for group in groups:
+                group.stop()
             lighthouse.shutdown()
-        phases[phase] = (_read_results(phase_dir), rcs, logs)
+        phases[phase] = (_read_results(phase_dir, ranks_per_group), rcs, logs)
 
     res1, rcs1, _ = phases["drain"]
     all_drained = all(r and r.get("drained") for r in res1.values())

@@ -56,9 +56,9 @@ class LlamaConfig:
     flash_block_q: int = 512
     flash_block_k: int = 512
     # Mixture of experts: num_experts == 0 -> dense MLP, else MoEMLP (top-k
-    # routing, dense one-hot dispatch and combine). Experts are not sharded:
-    # an 'ep' axis above 1 is a placement that waits for the sharding item
-    # (ROADMAP.md queue 1: parallel/sharding.py + FSDP2).
+    # routing, dense one-hot dispatch and combine). Experts are not placed
+    # over an 'ep' axis: above 1 it raises (ROADMAP.md queue 1: tensor and
+    # expert parallelism across ranks).
     num_experts: int = 0
     num_experts_per_tok: int = 2
     # Per-sequence expert buffer = capacity_factor * S * k / E tokens;
@@ -260,7 +260,10 @@ class MoEMLP(nn.Module):
     residual only. Dispatch and combine are one-hot ``[B,S,E,C]`` einsums in
     ``cfg.dtype``, with no scatter: atomics would change the bits from run
     to run. ``forward`` keeps the layer's Switch load-balancing term in
-    ``self.aux`` (``E * sum_e f_e * p_e``), which the JAX model sows."""
+    ``self.aux`` (``E * sum_e f_e * p_e``), which the JAX model sows, and
+    its two factors (the top-1 share ``f`` and the mean probability ``p``
+    of each expert) in ``self.load``, so that ranks holding parts of one
+    batch can average them first."""
 
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
@@ -276,6 +279,7 @@ class MoEMLP(nn.Module):
         self.experts_up = nn.Parameter(_lecun_normal_(torch.empty(E, H, I), H * E))
         self.experts_down = nn.Parameter(_lecun_normal_(torch.empty(E, I, H), I * E))
         self.aux: Optional[torch.Tensor] = None
+        self.load: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -289,7 +293,8 @@ class MoEMLP(nn.Module):
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
         top1 = F.one_hot(gate_idx[..., 0], E).to(f32)
-        self.aux = E * torch.sum(top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        self.load = (top1.mean(dim=(0, 1)), probs.mean(dim=(0, 1)))
+        self.aux = E * torch.sum(self.load[0] * self.load[1])
 
         counts = x.new_zeros((B, E), dtype=f32)
         dispatch = x.new_zeros((B, S, E, C), dtype=f32)
@@ -313,6 +318,29 @@ class MoEMLP(nn.Module):
         ye = torch.einsum("beci,eih->bech", hidden, self.experts_down.to(dt))
         out = torch.einsum("bsec,bech->bsh", combine.to(dt), ye)
         return out.to(x.dtype)
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean of a tensor over the ranks of a process group, each rank
+    holding its own; differentiable (the gradient of each rank's input is
+    the group's mean of the gradients of the output)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor):
+        import torch.distributed as dist
+
+        out = grad.detach().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out / dist.get_world_size(ctx.group), None
 
 
 class Block(nn.Module):
@@ -345,13 +373,23 @@ class Transformer(nn.Module):
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
         )
 
-    def router_aux(self) -> Optional[torch.Tensor]:
+    def router_aux(self, group: Any = None) -> Optional[torch.Tensor]:
         """The mean over layers of the MoE layers' load-balancing terms from
         the last forward (what the JAX model sows as ``router_aux``); None
-        for a dense model."""
+        for a dense model. With ``group`` (the torch process group of ranks
+        that each ran the forward on their rows of one batch) each layer's
+        ``f`` and ``p`` are averaged over the group first, through a
+        differentiable all-reduce, so every rank gets the whole batch's
+        term, as the JAX model computes it over its sharded batch."""
         if self.cfg.num_experts <= 0:
             return None
-        return torch.stack([block.mlp.aux for block in self.layers]).mean()
+        if group is None:
+            return torch.stack([block.mlp.aux for block in self.layers]).mean()
+        terms = []
+        for block in self.layers:
+            f, p = (_GroupMean.apply(t, group) for t in block.mlp.load)
+            terms.append(self.cfg.num_experts * torch.sum(f * p))
+        return torch.stack(terms).mean()
 
     def router_names(self) -> List[str]:
         """The MoE routers' weight names in layer order; empty for a dense
@@ -365,12 +403,19 @@ class Transformer(nn.Module):
         """The vocab projection [V, H] (the tied embedding or lm_head)."""
         return self.embed.weight if self.lm_head is None else self.lm_head.weight
 
-    def forward(
-        self,
-        tokens: torch.Tensor,
-        positions: Optional[torch.Tensor] = None,
-        return_hidden: bool = False,
+    def call(self, fn: Callable[..., Any], *args: Any) -> Any:
+        """``fn(self, *args)``: a loss or a schedule that reads the model's
+        own parameters outside :meth:`forward` (the vocab head, the
+        embedding of a pipeline's first stage). Under FSDP2 this method is
+        registered as a forward method of the root
+        (``parallel.train.init_train_state``), so the root's parameters are
+        gathered for all of ``fn`` and its gradients reduced after it."""
+        return fn(self, *args)
+
+    def hidden(
+        self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
+        """The post-final-norm hidden states [B,S,H] in cfg.dtype."""
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -384,10 +429,18 @@ class Transformer(nn.Module):
                 )
             else:
                 x = block(x, cos, sin)
-        x = self.final_norm(x)
+        return self.final_norm(x)
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        return_hidden: bool = False,
+    ) -> torch.Tensor:
+        x = self.hidden(tokens, positions)
         if return_hidden:
             return x
-        return _linear(x, self.head_weight(), cfg.dtype).float()
+        return _linear(x, self.head_weight(), self.cfg.dtype).float()
 
 
 # ---------------------------------------------------------------------------

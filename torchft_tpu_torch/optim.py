@@ -10,11 +10,22 @@ sharded PG transport).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch._dtensor import is_dtensor, local as _local
+from torchft_tpu_torch.parallel.sharding import local_slices
+
+
+def _layout(t: torch.Tensor) -> Tuple[Tuple[int, int], ...]:
+    """The global ``(start, stop)`` of each dim of the shard this rank
+    holds: a DTensor's local shard, or the whole of a plain tensor."""
+    if is_dtensor(t):
+        return tuple((s.start, s.stop) for s in local_slices(t))
+    return tuple((0, n) for n in t.shape)
 
 
 def optimizer_state_dict(
@@ -23,12 +34,18 @@ def optimizer_state_dict(
     """Parameters and per-parameter state of ``optimizer`` keyed by (group,
     index) position, so the receiver needs no ids: as host numpy, or with
     ``device=True`` as the live tensors on their devices (detached, not
-    copied; AdamW's ``step`` stays the 0-d tensor torch keeps on the CPU)."""
+    copied; AdamW's ``step`` stays the 0-d tensor torch keeps on the CPU).
+
+    A DTensor parameter (sharded by FSDP2) and its state go as this rank's
+    local shards: the host form holds the shard's numpy, the device form
+    the DTensor itself (``checkpointing/sharded.py`` sends its local
+    shard), and ``"layout"`` maps its key to the shard's global ``(start,
+    stop)`` per dim, which a load checks against its own."""
     leaf = (
         (lambda t: t.detach()) if device
-        else (lambda t: t.detach().cpu().numpy())
+        else (lambda t: _local(t).detach().cpu().numpy())
     )
-    params, state = {}, {}
+    params, state, layout = {}, {}, {}
     for g, group in enumerate(optimizer.param_groups):
         for i, p in enumerate(group["params"]):
             key = f"{g}.{i}"
@@ -37,7 +54,12 @@ def optimizer_state_dict(
                 name: (leaf(v) if torch.is_tensor(v) else v)
                 for name, v in optimizer.state.get(p, {}).items()
             }
-    return {"params": params, "state": state}
+            if is_dtensor(p):
+                layout[key] = _layout(p)
+    out = {"params": params, "state": state}
+    if layout:
+        out["layout"] = layout
+    return out
 
 
 def init_adam_state(optimizer: torch.optim.Optimizer) -> None:
@@ -70,19 +92,48 @@ def load_optimizer_state_dict(
     """Writes a :func:`optimizer_state_dict` payload (host numpy or the
     device form) into ``optimizer``'s parameters (in place, on their
     devices) and replaces its state with copies. Scalar state (AdamW's
-    ``step``) stays where torch keeps it, on the CPU."""
+    ``step``) stays where torch keeps it, on the CPU.
+
+    A DTensor parameter takes the payload's local shard into its own, and
+    its state is rebuilt as DTensors with its placements; the payload's
+    shard must cover the same global slice as this rank's (a plain tensor
+    covers the whole), else it raises: the sender's and receiver's
+    layouts differ."""
+    layouts = sd.get("layout", {})
     with torch.no_grad():
         for g, group in enumerate(optimizer.param_groups):
             for i, p in enumerate(group["params"]):
                 key = f"{g}.{i}"
-                p.copy_(torch.as_tensor(sd["params"][key]))
+                src = sd["params"][key]
+                if is_dtensor(p):
+                    if is_dtensor(src):
+                        got = _layout(src)
+                    elif key in layouts:
+                        got = layouts[key]
+                    else:
+                        got = tuple((0, n) for n in np.shape(src))
+                    if tuple(map(tuple, got)) != _layout(p):
+                        raise ValueError(
+                            f"parameter {key}: the checkpoint holds the "
+                            f"shard {tuple(got)}, this rank holds "
+                            f"{_layout(p)} (sender/receiver shardings differ)"
+                        )
+                _local(p).copy_(torch.as_tensor(_local(src)))
                 new = {}
                 for name, v in sd["state"][key].items():
-                    t = torch.as_tensor(v)
-                    new[name] = (
-                        t.to(p.device, copy=True) if t.dim() > 0
-                        else t.to("cpu", copy=True)
-                    )
+                    t = torch.as_tensor(_local(v))
+                    if t.dim() == 0:
+                        new[name] = t.to("cpu", copy=True)
+                        continue
+                    t = t.to(_local(p).device, copy=True)
+                    if is_dtensor(p):
+                        from torch.distributed.tensor import DTensor
+
+                        t = DTensor.from_local(
+                            t, p.device_mesh, p.placements,
+                            shape=p.shape, stride=p.stride(),
+                        )
+                    new[name] = t
                 optimizer.state[p] = new
 
 

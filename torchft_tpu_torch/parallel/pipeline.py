@@ -19,8 +19,11 @@ stage in its bubble ticks, on inputs no output depends on; here those
 ticks are skipped.
 
 The embedding runs once before the trunk and the head and loss once after
-the last stage, on full logits (not the chunked loss), as in JAX. The batch
-is not sharded: a mesh with ``dp`` above 1 raises.
+the last stage, on full logits (not the chunked loss), as in JAX. ``dp``
+is a process axis (``parallel/mesh.py``): each rank pipelines its own rows
+of the batch, and its loss takes the whole batch's token count as
+``denom``. A pipeline whose stages sit on other ranks is not ported
+(``sharding.TP_EP_ITEM``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ from torchft_tpu_torch.models.llama import (
     rope_table,
 )
 from torchft_tpu_torch.parallel.mesh import Mesh
-from torchft_tpu_torch.parallel.ring_attention import SHARDING_ITEM
 
 
 def gpipe_loop(
@@ -90,23 +92,23 @@ def _check_cfg(cfg: LlamaConfig, n_stages: int) -> None:
 def make_pipeline_loss(
     cfg: LlamaConfig, mesh: Mesh, n_micro: int
 ) -> Callable[[Transformer, Dict[str, torch.Tensor]], torch.Tensor]:
-    """Returns ``loss(model, batch)``: the mean next-token cross entropy of
-    ``batch`` ({"inputs", "targets", "mask"}, each [B, S]) over ``mask``,
-    with ``model.layers`` pipelined over the mesh's ``pp`` axis in
-    ``n_micro`` microbatches. Stage s's layers must live on the mesh's
-    stage-s device."""
+    """Returns ``loss(model, batch, denom=None)``: the next-token cross
+    entropy of ``batch`` ({"inputs", "targets", "mask"}, each [B, S]) over
+    ``mask``, summed and divided by ``denom`` (default the batch's mask
+    count: its mean), with ``model.layers`` pipelined over the mesh's
+    ``pp`` axis in ``n_micro`` microbatches. Stage s's layers must live on
+    the mesh's stage-s device."""
     n_stages = mesh.shape["pp"]
     _check_cfg(cfg, n_stages)
-    if mesh.shape["dp"] > 1:
-        raise NotImplementedError(
-            f"pipeline on a mesh with dp={mesh.shape['dp']}: batch sharding "
-            f"is not ported ({SHARDING_ITEM})"
-        )
     devices = mesh.axis_devices("pp")
     per_stage = cfg.num_layers // n_stages
     H = cfg.hidden_size
 
-    def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss_fn(
+        model: Transformer,
+        batch: Dict[str, torch.Tensor],
+        denom: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         inputs = batch["inputs"].to(devices[0])
         B, S = inputs.shape
         if B % n_micro != 0:
@@ -143,6 +145,8 @@ def make_pipeline_loss(
             reduction="none",
         )
         mask_f = batch["mask"].to(last).float()
-        return (losses * mask_f.flatten()).sum() / mask_f.sum().clamp_min(1.0)
+        if denom is None:
+            denom = mask_f.sum().clamp_min(1.0)
+        return (losses * mask_f.flatten()).sum() / denom.to(last)
 
     return loss_fn

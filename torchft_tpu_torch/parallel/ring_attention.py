@@ -30,11 +30,9 @@ import torch
 
 from torchft_tpu_torch.ops.flash_attention import flash_attention_block, supports
 from torchft_tpu_torch.parallel.mesh import Mesh
+from torchft_tpu_torch.parallel.sharding import TP_EP_ITEM
 
 Rotate = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
-
-# Batch and head sharding inside a replica group.
-SHARDING_ITEM = "ROADMAP.md queue 1: parallel/sharding.py + FSDP2"
 
 
 def _flash_fold_supported(sq: int, skv: int) -> bool:
@@ -165,16 +163,13 @@ def make_ring_attention(mesh: Mesh, use_flash: Optional[bool] = None):
 
     ``use_flash``: fold each block with the flash kernels instead of the
     dense fold; None picks them for shards the flash gate takes (>= 256
-    tokens, block-divisible). Batch and head sharding (the JAX ring's dp,
-    fsdp and tp axes) are not ported: a mesh with any of them above 1
-    raises."""
-    sharded = [
-        f"{a}={mesh.shape[a]}" for a in ("dp", "fsdp", "tp") if mesh.shape[a] > 1
-    ]
-    if sharded:
+    tokens, block-divisible). The batch is this rank's rows: dp and fsdp
+    are process axes (``parallel/mesh.py``). Head sharding (the JAX ring's
+    tp axis) is not ported: tp above 1 raises."""
+    if mesh.shape["tp"] > 1:
         raise NotImplementedError(
-            f"ring attention on a mesh with {', '.join(sharded)}: batch and "
-            f"head sharding are not ported ({SHARDING_ITEM})"
+            f"ring attention on a mesh with tp={mesh.shape['tp']}: head sharding "
+            f"across ranks is not ported ({TP_EP_ITEM})"
         )
     devices = mesh.axis_devices("sp")
     n = len(devices)

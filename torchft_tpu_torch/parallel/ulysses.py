@@ -35,7 +35,7 @@ import torch
 from torchft_tpu_torch.models.llama import dense_attention
 from torchft_tpu_torch.ops.flash_attention import flash_attention, supports
 from torchft_tpu_torch.parallel.mesh import Mesh
-from torchft_tpu_torch.parallel.ring_attention import SHARDING_ITEM
+from torchft_tpu_torch.parallel.sharding import TP_EP_ITEM
 
 
 def _kv_expand_factor(h_q: int, h_kv: int, sp: int) -> int:
@@ -99,16 +99,14 @@ def make_ulysses_attention(mesh: Mesh, use_flash: Optional[bool] = None):
     """Returns causal ``attn_fn(q, k, v)`` over [B, S, H, Dh]: the sequence split
     over the mesh's ``sp`` devices, re-sharded to heads, attended, re-sharded
     back and gathered on q's device. Differentiable. The all-to-all
-    counterpart of :func:`make_ring_attention`, with the same limits: batch
-    and head sharding (the JAX version's dp, fsdp and tp axes) are not
-    ported, and a mesh with any of them above 1 raises."""
-    sharded = [
-        f"{a}={mesh.shape[a]}" for a in ("dp", "fsdp", "tp") if mesh.shape[a] > 1
-    ]
-    if sharded:
+    counterpart of :func:`make_ring_attention`, with the same limits: the
+    batch is this rank's rows (dp and fsdp are process axes), and head
+    sharding (the JAX version's tp axis) is not ported: tp above 1
+    raises."""
+    if mesh.shape["tp"] > 1:
         raise NotImplementedError(
-            f"Ulysses attention on a mesh with {', '.join(sharded)}: batch and "
-            f"head sharding are not ported ({SHARDING_ITEM})"
+            f"Ulysses attention on a mesh with tp={mesh.shape['tp']}: head sharding "
+            f"across ranks is not ported ({TP_EP_ITEM})"
         )
     devices = mesh.axis_devices("sp")
     n = len(devices)

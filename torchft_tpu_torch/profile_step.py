@@ -28,7 +28,8 @@ TRAINER_ARGS = [
 TRACE_START, TRACE_STEPS = 4, 3
 
 
-def _union_us(intervals) -> float:
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
     for a, b in sorted(intervals):
         if b > end:
@@ -85,7 +86,7 @@ def profile(out: Path) -> dict:
     result.pop("step_ms", None)
     summary = {
         "window_ms": (t1 - t0) / 1e3,
-        "device_busy_ms": _union_us(
+        "device_busy_ms": union_us(
             (e["ts"], e["ts"] + e["dur"]) for e in device
         ) / 1e3,
         "device_sum_ms_per_step": sum(e["dur"] for e in device) / 1e3 / TRACE_STEPS,

@@ -1,22 +1,46 @@
-"""Fault-tolerant training of the Llama decoder on one device per replica
-group: the PyTorch twin of the repo root's ``train_hsdp.py`` loop with an
-inner mesh of one device (``auto_mesh`` over the group's device).
+"""Fault-tolerant HSDP training of the Llama decoder: the PyTorch twin of
+the repo root's ``train_hsdp.py`` loop.
+
+A replica group is ``WORLD_SIZE`` processes, one device each, launched as
+torchrun launches them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; default
+one process; ``--device cuda`` takes the card ``LOCAL_RANK`` names). Their
+torch world rendezvouses at ``GROUP_INIT_METHOD``
+(``parallel.mesh.init_group``; ``MASTER_PORT`` is rank 0's Manager store).
+The group's mesh is ``auto_mesh(WORLD_SIZE)``, as the JAX trainer's is
+``auto_mesh(n_dev)``: ``dp`` and ``fsdp`` are process axes, over which the
+state is born sharded by FSDP2 (``parallel.train.init_train_state``) and
+each rank takes its rows of every step's global batch; ``sp`` and ``pp``
+are in-process axes (1 here). A size whose factoring needs ``tp`` or
+``sp`` across ranks (4 ranks: fsdp 2 x tp 2) raises, so groups are 1, 2
+or 3 ranks.
 
 Per step: ``manager.start_quorum()``, the grad step, the replica-axis
 gradient average (``ManagedMesh.allreduce_grads``, which delegates to
-``DistributedDataParallel.allreduce_grads``), the fenced
-``manager.should_commit()``, and the AdamW apply. A killed group restarts,
-heals params + optimizer state from a healthy peer (host numpy over the HTTP
-checkpoint transport) and rejoins; groups that commit step k hold
-bitwise-identical parameters.
+``DistributedDataParallel.allreduce_grads``: each rank averages its own
+shards with the same rank of the other groups), the fenced
+``manager.should_commit()``, and the AdamW apply. A killed group restarts
+(every rank), each rank heals its shards of the params + optimizer state
+from the same rank of a healthy group (host numpy over the HTTP checkpoint
+transport) and rejoins; groups that commit step k hold bitwise-identical
+parameters.
 
-Run two replica groups against one lighthouse (both may share one card)::
+Run two replica groups of one rank against one lighthouse (both may share
+one card)::
 
     torchft_tpu/_cpp/bin/lighthouse --min-replicas 2 --port 29510 &
     for i in 0 1; do
       TORCHFT_LIGHTHOUSE=127.0.0.1:29510 REPLICA_GROUP_ID=$i \\
       python -m torchft_tpu_torch.train_hsdp --model small --attn flash \\
           --batch 8 --seq 1024 --min-replicas 2 --steps 8 --result-dir out &
+    done
+
+Two ranks a group on the CPU (gloo), each rank its own process::
+
+    for r in 0 1; do
+      TORCHFT_LIGHTHOUSE=127.0.0.1:29510 REPLICA_GROUP_ID=0 RANK=$r \
+      WORLD_SIZE=2 LOCAL_RANK=$r MASTER_PORT=29520 \
+      GROUP_INIT_METHOD=tcp://127.0.0.1:29521 \
+      python -m torchft_tpu_torch.train_hsdp --device cpu --steps 8 &
     done
 
 ``--attn ring`` runs attention as ring attention over the mesh's ``sp``
@@ -45,11 +69,17 @@ leaf at a time and the receiver builds each leaf as a fresh tensor on its
 own device, which the main thread loads at the next step.
 
 ``--durable-dir DIR`` (``--durable-every N``, default 10) adds durable
-snapshots (``checkpointing/durable.py``) under ``DIR/group<id>``: params,
+snapshots (``checkpointing/durable.py``) under ``DIR/group<id>/rank<r>``
+(each rank its own shards): params,
 AdamW state and the manager's step every N committed steps and at a
 SIGTERM drain, restored at boot through the heal loader, so a job whose
 every group was preempted resumes where it drained
 (``drill.preempt_all_drill``).
+
+Each rank writes its result JSON (``group<id>.json`` for rank 0,
+``group<id>_rank<r>.json`` for the others); ``param_sha256`` is taken over
+the gathered full parameters in ``named_parameters`` order, so it means
+the same at every group size.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -125,6 +155,7 @@ def main(argv=None) -> int:
     sigterm_drain = drain_signal(args.drain_on_sigterm)
 
     import torch
+    import torch.distributed as dist
 
     from torchft_tpu_torch import telemetry
     from torchft_tpu_torch.device_mesh import ft_init_device_mesh
@@ -136,17 +167,16 @@ def main(argv=None) -> int:
         load_optimizer_state_dict,
         optimizer_state_dict,
     )
-    from torchft_tpu_torch.parallel import auto_mesh, make_pipeline_loss
-    from torchft_tpu_torch.parallel.train import (
-        build_model,
-        default_optimizer,
-        grad_step,
-    )
+    from torchft_tpu_torch.parallel import make_pipeline_loss
+    from torchft_tpu_torch.parallel.mesh import group_env, group_mesh, init_group
+    from torchft_tpu_torch.parallel.train import init_train_state, make_grad_step
     from torchft_tpu_torch.process_group import make_process_group
 
     device = trainer_device(args.device, "train_hsdp")
     group = os.environ.get("REPLICA_GROUP_ID", "0")
-    mesh = auto_mesh(1, devices=[device])  # one device per replica group
+    rank, world_size = group_env()
+    mesh = group_mesh(world_size, rank, device)  # raises before any rendezvous
+    init_group(device)
     B, S = args.batch, args.seq
     cfg = {
         "debug": llama_debug,
@@ -171,9 +201,10 @@ def main(argv=None) -> int:
         if args.model == "pipeline" else None
     )
 
-    torch.manual_seed(0)  # same initial weights in every group
-    model = build_model(cfg, mesh).to(device)
-    optimizer = default_optimizer(model.parameters())
+    # Same initial weights in every group, born sharded over its ranks.
+    state, _ = init_train_state(cfg, mesh, device, seed=0)
+    model, optimizer = state.model, state.optimizer
+    grad_step = make_grad_step(state, loss_fn)
     params = dict(model.named_parameters())
 
     # Heal contract. http: the recovering group receives params + AdamW
@@ -213,9 +244,14 @@ def main(argv=None) -> int:
         max_retries=20,
     )
     mm = ft_init_device_mesh(manager, mesh=mesh)
+    # Mesh-relative views, as the JAX trainer logs them: the HSDP selection
+    # pairs the dynamic replica axis with the fsdp shard axis; "world"
+    # flattens every axis for a composite rank and size.
+    hsdp_view = mm[("replica", "fsdp")]
+    world = mm.flatten(name="world")
     logging.info(
-        "managed mesh: %r; hsdp view %s; world size %d", mm,
-        mm[("replica", "fsdp")].shape(), mm.flatten(name="world").size(),
+        "managed mesh: %r; hsdp view %s (size %d); world size %d rank %s",
+        mm, hsdp_view.shape(), hsdp_view.size(), world.size(), world.rank(),
     )
 
     # Durable regime: params + AdamW state + the manager's scalars. Restore
@@ -229,7 +265,9 @@ def main(argv=None) -> int:
         }
 
     if args.durable_dir:
-        ckpt = DurableRegime(args.durable_dir, group, every=args.durable_every)
+        ckpt = DurableRegime(
+            args.durable_dir, group, every=args.durable_every, rank=rank
+        )
         snap = ckpt.restore_if_any()
         if snap is not None:
             load_optimizer_state_dict(optimizer, snap["optimizer"])
@@ -239,6 +277,18 @@ def main(argv=None) -> int:
     def sync() -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+    def drain_now() -> bool:
+        """Whether to drain at this step boundary. The signal reaches each
+        rank on its own; every rank of the group must drain at the same
+        boundary (a straggler would wait in FSDP2's collectives for ranks
+        that left), so the ranks agree on it first."""
+        drain = sigterm_drain() or manager.drain_requested()
+        if world_size == 1:
+            return drain
+        flag = torch.tensor([float(drain)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     metrics = telemetry.get_metrics_logger()
     losses = []
@@ -255,10 +305,10 @@ def main(argv=None) -> int:
     try:
         while manager.current_step() < args.steps:
             step = manager.current_step()
-            if sigterm_drain() or manager.drain_requested():
+            if drain_now():
                 logging.info(
                     "[group %s] draining at step %d (%s)", group, step,
-                    "SIGTERM" if sigterm_drain() else "operator request",
+                    "SIGTERM" if sigterm_drain() else "operator or group request",
                 )
                 manager.leave()
                 if ckpt is not None:
@@ -268,8 +318,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             telemetry.trace_window(step)
             manager.start_quorum()
-            # Deterministic batch per step: every group that commits step k
-            # computes identical params (bitwise) — heal-invariant.
+            # Deterministic global batch per step: every group that commits
+            # step k computes identical params (bitwise) — heal-invariant.
+            # Each rank takes its rows of it (make_grad_step).
             gen = torch.Generator(device=device).manual_seed(step)
             inputs = torch.randint(
                 0, cfg.vocab_size, (B, S), generator=gen, device=device
@@ -279,7 +330,7 @@ def main(argv=None) -> int:
                 "targets": torch.roll(inputs, -1, 1),
                 "mask": torch.ones((B, S), dtype=torch.int32, device=device),
             }
-            loss, grads = grad_step(model, batch, loss_fn)
+            loss, grads = grad_step(batch)
             sync()
             t_grad = time.perf_counter()
             grads = mm.allreduce_grads(
@@ -325,16 +376,30 @@ def main(argv=None) -> int:
             ckpt.close()  # every snapshot on disk before the result is written
         if args.result_dir:
             os.makedirs(args.result_dir, exist_ok=True)
-            host = [p.detach().cpu().numpy() for p in params.values()]
+            # The gathered full parameters and AdamW state (collectives:
+            # every rank), in named_parameters order.
+            host = [
+                p.detach().full_tensor().cpu().numpy() for p in params.values()
+            ]
+            opt_host = [
+                (v.full_tensor() if v.dim() else v).cpu().numpy()
+                for p in params.values()
+                for _, v in sorted(optimizer.state[p].items())
+            ]
             # Steady-state steps only: the first committed step of a process
             # also pays one-time set-up (kernel build and load, allocator).
             steady = step_ms[1:] or step_ms
             result = {
                 "group": group,
+                "rank": rank,
+                "world_size": world_size,
                 "final_step": manager.current_step(),
                 "param_l1": float(sum(abs(h).sum() for h in host)),
                 "param_sha256": hashlib.sha256(
                     b"".join(h.tobytes() for h in host)
+                ).hexdigest(),
+                "opt_sha256": hashlib.sha256(
+                    b"".join(h.tobytes() for h in opt_host)
                 ).hexdigest(),
                 "losses": losses[-5:],
                 "drained": drained,
@@ -357,22 +422,22 @@ def main(argv=None) -> int:
                 "tokens_per_step": B * S,
                 # MoE: sum of |router gradient| of the last committed step.
                 "router_grad_l1": (
-                    float(sum(g.abs().sum() for g in router_grads))
+                    float(sum(g.full_tensor().abs().sum() for g in router_grads))
                     if router_grads else None
                 ),
                 "ckpt_transport": args.ckpt_transport,
                 # Each durable snapshot's host copy and write seconds, bytes.
                 "durable_saves": ckpt.saves if ckpt is not None else [],
             }
-            with open(
-                os.path.join(args.result_dir, f"group{group}.json"), "w"
-            ) as f:
+            name = f"group{group}" + (f"_rank{rank}" if rank else "")
+            with open(os.path.join(args.result_dir, f"{name}.json"), "w") as f:
                 json.dump(result, f)
         return 0
     finally:
         if ckpt is not None:
             ckpt.close()
         manager.shutdown()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

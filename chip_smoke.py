@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. Flash kernels: each kernel against its plain PyTorch version on the card,
    element by element (``TOL``), at the training path's shapes
    (llama_small: B=8, S=1024, Hq=12, Hkv=4, D=64, bf16) and at further
-   shapes (fp32 D=64 and D=128, non-causal, a ragged length); timed with
+   shapes (fp32 D=64 and D=128, non-causal, a ragged length, and phase
+   21's tp 2 shape, Hq=6, Hkv=2, in bf16 and fp32); timed with
    CUDA events beside its plain version, the one-call PyTorch equivalent
    (``F.scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take. Also the model with flash
@@ -193,11 +194,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    quorum respawns it (a new ``child_pid``) and the next allreduce commits
    the fp32 bytes. Prints each allreduce's seconds with both groups, the
    spawn and respawn seconds and ``df /dev/shm``.
-21. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
-   pg-sharded, preemption and orchestration drills', phase 17's and the
-   bench's launches too, the quantize rows the DDP, MoE, GPipe drills',
-   the bench's and the Baby group's), the card line, and the last line:
-   ``{"ok": true, "device": {...}}``.
+21. Tensor and expert parallelism: two ranks on the card in a
+   ``cpu:gloo,cuda:gloo`` world (NCCL refuses two ranks on one device;
+   ``init_group`` returns at once for it), each first checking the sums of
+   ``all_reduce``, ``all_gather_into_tensor`` and
+   ``reduce_scatter_tensor`` on the card's tensors: llama_small at its
+   full width at ``make_mesh(tp=2)`` (6 q / 2 kv heads a rank, flash,
+   B=8, S=1024) and llama_moe_debug at ``make_mesh(ep=2)`` (B=8, S=64),
+   each in fp32 and bf16: ``init_train_state`` and two ``make_train_step``
+   steps, held on rank 0 to the same two steps of the mesh-free model
+   (tp 1 in one process): fp32 to the CPU bars (``TP_FP32``), bf16 to
+   bars set from readings (``TP_BF16``), every parameter after the first
+   AdamW step to ``adamw_excess``'s bound; the planted fault (every
+   ``wo``'s two tp shards swapped) must fail the loss and the gradient
+   bars; the MoE router's gradient nonzero; kernels 1-3 launched in both
+   ranks (phase 2 holds them to their plain versions at this shape).
+   Prints its wall time, under ``TP_EP_BUDGET_S``.
+22. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
+   pg-sharded, preemption, orchestration and tp drills', phase 17's and
+   the bench's launches too, the quantize rows the DDP, MoE, GPipe
+   drills', the bench's and the Baby group's), the card line, and the
+   last line: ``{"ok": true, "device": {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
 or of the JAX package.
@@ -520,14 +537,49 @@ def bounds(B, S, Hq, Hkv, D, dtype_name, causal, Skv=None, pairs=None,
 # 1.28 * 2^-7. Where terms cancel, T is far larger than the element. fp32
 # outputs and every lse (fp32 on both sides) differ by summation order and
 # __expf only. The rms floor covers elements whose plain value and T are
-# exactly 0 (dS = 0 in row 0).
+# exactly 0. dq and dk add ``dp_rounding``: T holds dS's terms after
+# dP - delta cancelled, not the fp32 rounding of dP before it.
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 RMS_FLOOR = 1e-5
+# dS = P * (dP - delta [+ dlse]) takes dP = dO.V^T, a D-term fp32 sum on
+# each side, before it cancels against delta: the plain side's sum is off
+# by up to D * 2^-24 of its terms' magnitudes A = |dO|.|V|^T, the tensor
+# cores' by up to 2 D * 2^-24 (their fp32 accumulation need not round to
+# nearest), so the two sides' dS may differ by 3 D 2^-24 P A beside
+# ``TOL``'s roundings. In row 0 (key 0 alone: P = 1, dP = delta) that is
+# all of dS, and there the plain value and T are rounding noise or 0.
+DP_ROUNDING = 3 * 2.0**-24
 
 
-def compare(a, b, terms, tol: float) -> dict:
+def dp_rounding(q, k, v, dout, lse, causal: bool, q_off: int = 0,
+                k_off: int = 0) -> dict:
+    """dq's and dk's share of the fp32 rounding of dP, in their layouts:
+    ``DP_ROUNDING`` * D * (P A).|K| * scale and (P A)^T.|Q| * scale, the GQA
+    group summed."""
+    import math
+
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    Hq, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf = fa._heads_first(q), fa._heads_first(k, Hq // Hkv)
+    vf, dof = fa._heads_first(v, Hq // Hkv), fa._heads_first(dout)
+    keep = fa._keep(q, k, causal, q_off, k_off)
+    e = fa._probs(fa._scores(qf, kf, keep, scale), lse, keep)
+    e *= torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+    c = DP_ROUNDING * D * scale
+    return {
+        "dq": (torch.matmul(e, kf.abs()) * c).permute(0, 2, 1, 3),
+        "dk": fa._kv_heads(torch.matmul(e.transpose(-1, -2), qf.abs()) * c, Hkv),
+    }
+
+
+def compare(a, b, terms, tol: float, floor=0.0) -> dict:
     """max abs error, rms of the plain output, and the worst share of its
-    allowed error any element uses (> 1 fails)."""
+    allowed error (``TOL``'s, plus ``floor``) any element uses (> 1
+    fails)."""
     import torch
 
     a, b = a.float(), b.float()
@@ -535,7 +587,7 @@ def compare(a, b, terms, tol: float) -> dict:
         raise AssertionError("kernel output not finite")
     diff = (a - b).abs()
     rms = float(b.square().mean().sqrt())
-    allowed = tol * (b.abs() + terms) + RMS_FLOOR * rms
+    allowed = tol * (b.abs() + terms) + RMS_FLOOR * rms + floor
     # An exact match is share 0, also where everything is 0 (all masked).
     share = torch.where(diff == 0, 0.0, diff / allowed)
     return {
@@ -572,6 +624,7 @@ def check_case(B, S, Hq, Hkv, D, dtype, causal, timed: bool, seed: int):
     dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal)
 
     terms = fa.flash_attention_term_sums(q, k, v, dout, lse, delta, causal)
+    dp = dp_rounding(q, k, v, dout, lse, causal)
     dtype_name = str(dtype)[6:]
     tol, tol32 = TOL[dtype_name], TOL["float32"]
     outputs = {
@@ -579,9 +632,9 @@ def check_case(B, S, Hq, Hkv, D, dtype, causal, timed: bool, seed: int):
             "out": (out, out_r, terms["out"], tol),
             "lse": (lse, lse_r, 1.0, tol32),
         },
-        "flash_bwd_dq": {"dq": (dq, dq_r, terms["dq"], tol)},
+        "flash_bwd_dq": {"dq": (dq, dq_r, terms["dq"], tol, dp["dq"])},
         "flash_bwd_dkv": {
-            "dk": (dk, dk_r, terms["dk"], tol),
+            "dk": (dk, dk_r, terms["dk"], tol, dp["dk"]),
             "dv": (dv, dv_r, terms["dv"], tol),
         },
     }
@@ -599,8 +652,9 @@ def check_case(B, S, Hq, Hkv, D, dtype, causal, timed: bool, seed: int):
                 raise AssertionError(
                     f"{name} disagrees with its plain version at {case}: "
                     f"{o} |kernel - plain| reaches {r['share']:.3g}x of "
-                    f"{outs[o][3]} * (|plain| + T) + {RMS_FLOOR} * rms(plain) "
-                    f"(max abs err {r['max_abs_err']}, rms {r['ref_rms']})"
+                    f"{outs[o][3]} * (|plain| + T) + {RMS_FLOOR} * rms(plain)"
+                    + (" + dp_rounding" if len(outs[o]) > 4 else "")
+                    + f" (max abs err {r['max_abs_err']}, rms {r['ref_rms']})"
                 )
         records[name] = {
             "max_abs_err": max(r["max_abs_err"] for r in got.values()),
@@ -709,6 +763,10 @@ def kernel_phase() -> dict:
     check_case(2, 512, 4, 4, 64, bf16, False, timed=False, seed=2)
     check_case(1, 200, 4, 2, 32, fp32, True, timed=False, seed=3)
     check_case(2, 128, 4, 2, 16, bf16, True, timed=False, seed=4)
+    # Phase 21's shape: a rank's 6 q / 2 kv heads of llama_small at tp 2,
+    # in both of its dtypes.
+    check_case(8, 1024, 6, 2, 64, bf16, True, timed=False, seed=6)
+    check_case(8, 1024, 6, 2, 64, fp32, True, timed=False, seed=7)
     model_check()
     return main
 
@@ -756,6 +814,7 @@ def check_block_case(B, Sq, Skv, Hq, Hkv, D, dtype, q_off, k_off, timed: bool,
     terms = fa.flash_attention_term_sums(
         q, k, v, dout, lse, delta, True, q_off, k_off, dlse
     )
+    dp = dp_rounding(q, k, v, dout, lse, True, q_off, k_off)
     # Rows that see at least one key see key 0.
     seen = torch.arange(Sq, device=dev) + q_off >= k_off
     case = (f"B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} D={D} "
@@ -775,9 +834,9 @@ def check_block_case(B, Sq, Skv, Hq, Hkv, D, dtype, q_off, k_off, timed: bool,
             "out": (out[:, seen], out_r[:, seen], terms["out"][:, seen], tol),
             "lse": (lse, lse_r, 1.0, tol32),
         },
-        "flash_block_bwd_dq": {"dq": (dq, dq_r, terms["dq"], tol)},
+        "flash_block_bwd_dq": {"dq": (dq, dq_r, terms["dq"], tol, dp["dq"])},
         "flash_block_bwd_dkv": {
-            "dk": (dk, dk_r, terms["dk"], tol),
+            "dk": (dk, dk_r, terms["dk"], tol, dp["dk"]),
             "dv": (dv, dv_r, terms["dv"], tol),
         },
     }
@@ -2154,16 +2213,21 @@ def train_step_reference(model, init, batch, rows, combine) -> tuple:
     return float(loss), grads, params
 
 
+def rel_diff(got: dict, want: dict) -> float:
+    """The worst leaf's largest |got - want| over its largest |want|."""
+    return max(
+        float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), 1e-30)
+        for n in want
+    )
+
+
 def step_diff(got: tuple, want: tuple) -> dict:
     """The largest differences of ``got``'s loss, gradients (each over its
     leaf's largest |value|) and parameters from ``want``'s."""
     (l1, g1, p1), (l2, g2, p2) = got, want
     return {
         "loss": abs(l1 - l2),
-        "grad": max(
-            float((g1[n] - g2[n]).abs().max()) / max(float(g2[n].abs().max()), 1e-30)
-            for n in g2
-        ),
+        "grad": rel_diff(g1, g2),
         "param": max(float((p1[n] - p2[n]).abs().max()) for n in p2),
     }
 
@@ -2757,6 +2821,343 @@ def baby_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: tensor and expert parallelism across two ranks on one card
+# ---------------------------------------------------------------------------
+
+# The fp32 bars (the FMA kernel bodies): those of the CPU tests against the
+# JAX package (tests/test_torch_tp_ep.py): the loss to rtol 1e-5, every
+# gradient leaf's largest difference over its largest |value| to 1e-4.
+TP_FP32 = {"loss": 1e-5, "grad": 1e-4}
+# The bf16 bars (the tensor-core bodies), on the same statistics, set from
+# readings. The split run rounds at other places than the whole one (each
+# sum over the ranks adds partials already rounded to bf16), and bf16 keeps
+# 8 significant bits: 2^-8 between two roundings of a value. Sound runs on
+# the card read at most 2.34e-5 on the loss and 0.0160 (about 4 x 2^-8) on
+# a gradient leaf, the CPU rehearsal 2.23e-5 and 0.0094; the planted fault
+# reads 2.34e-4 on the loss and 1.95 on the gradients on the card, 1.11e-3
+# and 1.57 on the CPU (PERF.md, PR 17). The bars: 2^-14 = 6.1e-5 on the
+# loss, 2.6 times its largest sound reading and a 3.8th of the fault's
+# smallest, and 16 x 2^-8 = 2^-4 on the gradients, 3.9 times its largest
+# sound reading and a 25th of the fault's smallest. The fault must fail
+# both.
+TP_BF16 = {"loss": 2.0**-14, "grad": 2.0**-4}
+ADAMW_LR, ADAMW_EPS = 3e-4, 1e-8
+
+
+def adamw_excess(got, want, g_got, g_want) -> float:
+    """The largest |got - want| past its bound, over every element, after
+    one AdamW step (``default_optimizer``) from equal parameters with the
+    gradients ``g_got`` and ``g_want``. The first step moves a parameter by
+    lr * g / (|g| + eps) besides the decay, which is the same on both
+    sides; that function's slope is eps / (|g| + eps)^2, so two gradients
+    whose smaller magnitude is m and whose signs agree move it by at most
+    |dg| eps / (m + eps)^2 apart, and by at most |dg| / eps (m = 0) where
+    the signs differ; never by more than 2. The bound: 1e-5 (fp32
+    rounding) plus lr times that. It holds the elements whose gradient
+    cancelled to rounding noise below eps as well, where
+    tests/test_torch_fsdp.py's ``_adamw_close`` allows 2 lr and bounds
+    their count instead (one in 10,000 at llama_debug)."""
+    import torch
+
+    dg = (g_got - g_want).abs()
+    same = torch.sign(g_got) == torch.sign(g_want)
+    m = torch.where(same, torch.minimum(g_got.abs(), g_want.abs()), 0.0)
+    move = (dg * ADAMW_EPS / (m + ADAMW_EPS) ** 2).clamp_max(2.0)
+    return float(((got - want).abs() - 1e-5 - ADAMW_LR * move).clamp_min(0).max())
+
+
+# (family, dtype, mesh axis at 2) of phase 21's cases: the dense model
+# (llama_small on the card, llama_debug in the CPU rehearsal) at tp 2 and
+# llama_moe_debug at ep 2, each in fp32 and bf16.
+TP_EP_CASES = [(family, dtype, axis)
+               for family, axis in (("dense", "tp"), ("moe", "ep"))
+               for dtype in ("float32", "bfloat16")]
+# Phase 21's wall.
+TP_EP_BUDGET_S = 90.0
+
+
+def gather_full(t):
+    """The whole value of DTensor ``t`` on every rank of the world, through
+    c10d's ``all_gather_into_tensor`` of each rank's shard and its offsets
+    (every shard the same shape, as the plan's even splits give).
+    ``full_tensor()`` goes through DTensor's functional collectives, which
+    never returned for a gloo world's CUDA tensors on the card (PERF.md,
+    PR 17)."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.parallel.sharding import local_slices
+
+    local = t.to_local().contiguous()
+    world = dist.get_world_size()
+    shards = local.new_empty((world * local.shape[0],) + tuple(local.shape[1:]))
+    dist.all_gather_into_tensor(shards, local)
+    starts = torch.tensor([s.start for s in local_slices(t)], dtype=torch.int64)
+    every = starts.new_empty(world * starts.numel())
+    dist.all_gather_into_tensor(every, starts)
+    full = local.new_empty(tuple(t.shape))
+    for r, shard in enumerate(shards.chunk(world)):
+        at = every.view(world, -1)[r].tolist()
+        full[tuple(slice(o, o + n) for o, n in zip(at, local.shape))] = shard
+    return full
+
+
+def tp_ep_rank(spec: dict) -> None:
+    """One rank of phase 21's two-rank world (``spec``: rank, init, device,
+    model, out). Joins a gloo world that carries the device's tensors
+    (NCCL refuses two ranks on one card) before ``init_group``, which then
+    returns at once; per case: ``init_train_state`` at the case's mesh and
+    two ``make_train_step`` steps, counting the flash launches. Rank 0 then
+    runs the same two steps on the mesh-free model of the same seed (the
+    arithmetic of ``make_train_step`` at one rank, phase 17) and the dense
+    cases' planted fault (the two tp shards of every ``wo`` swapped), and
+    writes the differences to ``out/rank0.json``; every rank writes its
+    launches to ``out/rank<r>.json``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import llama_debug, llama_moe_debug, llama_small
+    from torchft_tpu_torch.ops import flash_attention
+    from torchft_tpu_torch.parallel import make_mesh
+    from torchft_tpu_torch.parallel.mesh import init_group
+    from torchft_tpu_torch.parallel.train import (
+        build_model,
+        default_optimizer,
+        grad_step,
+        init_train_state,
+        make_train_step,
+    )
+
+    from datetime import timedelta
+
+    rank, dev = spec["rank"], torch.device(spec["device"])
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    # A collective that never completes fails at the timeout, with its
+    # traceback in the rank's log, inside the phase's budget.
+    dist.init_process_group(
+        "cpu:gloo,cuda:gloo" if dev.type == "cuda" else "gloo",
+        init_method=spec["init"], rank=rank, world_size=2,
+        timeout=timedelta(seconds=60),
+    )
+    init_group(dev)
+    # The collectives the plan's sums and the checks' gathers run, on the
+    # device's tensors: each must be taken and give the exact sums.
+    one = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(one)
+    both = one.new_empty(8)
+    dist.all_gather_into_tensor(both, one)
+    half = one.new_empty(4)
+    dist.reduce_scatter_tensor(half, both)
+    if not (one.eq(3).all() and both.eq(3).all() and half.eq(6).all()):
+        raise AssertionError(f"gloo collectives on {dev}: {one}, {both}, {half}")
+    print(f"rank {rank}: all_reduce, all_gather_into_tensor and "
+          f"reduce_scatter_tensor exact on {dev}", flush=True)
+    small = spec["model"] == "small"
+    dense = (dataclasses.replace(llama_small(), attn_impl="flash", flash_min_seq=1024)
+             if small else llama_debug())
+    shapes = {"dense": (8, 1024 if small else 64), "moe": (8, 64)}
+    out = {"launches": {}, "diff": {}, "loss": {}}
+
+    def batch(family: str, k: int, vocab: int) -> dict:
+        B, S = shapes[family]
+        g = torch.Generator(device=dev).manual_seed(k)
+        x = torch.randint(0, vocab, (B, S), generator=g, device=dev)
+        return {"inputs": x, "targets": torch.roll(x, -1, 1),
+                "mask": torch.ones_like(x, dtype=torch.int32)}
+
+    def gathered(state) -> tuple:
+        named = list(state.model.named_parameters())
+        return ({n: gather_full(p.grad) for n, p in named},
+                {n: gather_full(p.detach()) for n, p in named})
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    try:
+        for family, dtype, axis in TP_EP_CASES:
+            name = f"{family} {dtype} {axis}=2"
+            print(f"rank {rank}: {name}", flush=True)
+            base = dense if family == "dense" else llama_moe_debug()
+            cfg = dataclasses.replace(base, dtype=getattr(torch, dtype), remat=False)
+            b1, b2 = (batch(family, k, cfg.vocab_size) for k in (0, 1))
+            mesh = make_mesh(**{axis: 2}, devices=[dev] * 2)
+            mesh.process_rank = rank
+            for k in flash_attention.LAUNCHES:
+                flash_attention.LAUNCHES[k] = 0
+            sync()
+            t0 = time.perf_counter()
+            state, _ = init_train_state(cfg, mesh, dev, seed=0)
+            step = make_train_step(state)
+            state, m1 = step(state, b1)
+            sync()
+            step_s = time.perf_counter() - t0
+            g1, p1 = gathered(state)
+            state, m2 = step(state, b2)
+            sync()
+            out["launches"][name] = {k: flash_attention.LAUNCHES[k] for k in FLASH_KERNELS}
+            got = (float(m1["loss"]), float(m2["loss"]))
+            del state, step
+            fault = None
+            if family == "dense":
+                # The planted fault: each rank computes with the other
+                # rank's block of every wo's input columns.
+                state, _ = init_train_state(cfg, mesh, dev, seed=0)
+                with torch.no_grad():
+                    for block in state.model.layers:
+                        w = block.attn.wo.weight
+                        full, local = gather_full(w), w.to_local()
+                        n = local.shape[1]
+                        local.copy_(full[:, (1 - rank) * n:(2 - rank) * n])
+                state, m = make_train_step(state)(state, b1)
+                fault = (float(m["loss"]), gathered(state)[0])
+                del state
+            if rank == 0:
+                torch.manual_seed(0)
+                model = build_model(cfg).to(dev)
+                opt = default_optimizer(model.parameters())
+                l1, grads = grad_step(model, b1)
+                r_g1 = {n: g.clone() for n, g in grads.items()}
+                opt.step()
+                r_p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
+                l2, _ = grad_step(model, b2)
+                want = (float(l1), float(l2))
+                out["diff"][name] = {
+                    "loss": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+                    "grad": rel_diff(g1, r_g1),
+                    "adamw_excess": max(
+                        adamw_excess(p1[n], r_p1[n], g1[n], r_g1[n]) for n in r_p1
+                    ),
+                    "router_grad_l1": sum(
+                        float(g1[n].abs().sum()) for n in g1 if "router" in n
+                    ),
+                    "fault_loss": None if fault is None else abs(fault[0] - want[0]) / abs(want[0]),
+                    "fault_grad": None if fault is None else rel_diff(fault[1], r_g1),
+                    "first_step_s": step_s,
+                }
+                out["loss"][name] = {"tp": got, "one": want}
+                del model, opt, grads, r_g1, r_p1
+            del g1, p1, fault
+        (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float = 240.0) -> dict:
+    """Phase 21's check (on the CPU: its rehearsal at llama_debug's size):
+    the two ranks of :func:`tp_ep_rank` as processes of their own, then
+    each case's differences held to its bars: the loss (both steps) and the
+    first step's gradients in fp32 to ``TP_FP32``, bf16 to ``TP_BF16``;
+    every case's parameters after the first AdamW step to the bound of
+    ``adamw_excess``, every element; each dense case's planted fault must
+    exceed its loss and gradient bars; the MoE router's gradient must be nonzero and
+    the flash kernels must launch in both ranks of the llama_small cases.
+    Returns the cases' differences, bars, losses and launches."""
+    import shutil
+    import socket
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="tp_ep_", dir=REPO / "build"
+                                 if (REPO / "build").is_dir() else None))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in (0, 1):
+            spec = {"rank": rank, "init": f"tcp://localhost:{port}", "device": device,
+                    "model": model, "out": str(work)}
+            log = open(work / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c",
+                 "import json, sys, chip_smoke; chip_smoke.tp_ep_rank(json.loads(sys.argv[1]))",
+                 json.dumps(spec)],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                # A crash in native code prints its Python stack to the log.
+                env={**os.environ, "OMP_NUM_THREADS": "1", "PYTHONFAULTHANDLER": "1",
+                     "PYTHONUNBUFFERED": "1",
+                     "PYTHONPATH": os.pathsep.join(
+                         p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)},
+            ), log))
+        deadline = time.monotonic() + timeout_s
+        for proc, _ in procs:
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            if rc != 0:
+                raise AssertionError(f"phase 21: a rank exited {rc}:\n" + "\n".join(
+                    f"rank {r}: " + (work / f"rank{r}.log").read_text()[-3000:]
+                    for r in (0, 1)))
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in (0, 1)]
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"cases": {}, "launches": {
+        k: sum(r["launches"][n][k] for r in ranks for n in r["launches"])
+        for k in FLASH_KERNELS
+    }}
+    failed = []
+    for family, dtype, axis in TP_EP_CASES:
+        name = f"{family} {dtype} {axis}=2"
+        d = ranks[0]["diff"][name]
+        bar = TP_FP32 if dtype == "float32" else TP_BF16
+        launches = [r["launches"][name] for r in ranks]
+        result["cases"][name] = {**d, "bar": bar, "launches": launches,
+                                 "loss_pair": ranks[0]["loss"][name]}
+        print(f"tp/ep {name}: loss {d['loss']:.3g} (bar {bar['loss']:.3g}), worst "
+              f"gradient {d['grad']:.3g} of its leaf's largest (bar {bar['grad']:.3g})"
+              + f", AdamW excess {d['adamw_excess']:.3g}"
+              + (f", planted fault: loss {d['fault_loss']:.3g}, gradient {d['fault_grad']:.3g}"
+                 if d["fault_grad"] is not None else "")
+              + (f", router gradient L1 {d['router_grad_l1']:.4g}" if family == "moe" else "")
+              + f"; losses {ranks[0]['loss'][name]}; launches per rank {launches}",
+              flush=True)
+        if d["loss"] > bar["loss"] or d["grad"] > bar["grad"]:
+            failed.append(f"{name} past its bars: {d} vs {bar}")
+        if d["adamw_excess"] > 0:
+            failed.append(f"{name} parameters past the AdamW bound: {d}")
+        if d["fault_grad"] is not None and (
+            d["fault_loss"] <= bar["loss"] or d["fault_grad"] <= bar["grad"]
+        ):
+            failed.append(
+                f"{name}: the planted fault (wo's tp shards swapped) passes a "
+                f"bar (loss {d['fault_loss']:.3g}, gradient {d['fault_grad']:.3g}; "
+                f"bars {bar})"
+            )
+        if family == "moe" and not d["router_grad_l1"] > 0:
+            failed.append(f"{name}: router gradient {d['router_grad_l1']}")
+        if family == "dense" and model == "small" and not all(
+            n > 0 for r in launches for n in r.values()
+        ):
+            failed.append(f"{name}: a flash kernel did not launch: {launches}")
+    if failed:
+        raise AssertionError("phase 21: " + "; ".join(failed))
+    return result
+
+
+def tp_ep_phase() -> dict:
+    """Phase 21 on the card: :func:`tp_ep_check` at llama_small's full
+    width; prints the wall time, which must stay under
+    ``TP_EP_BUDGET_S``."""
+    t0 = time.perf_counter()
+    result = tp_ep_check("cuda:0", "small")
+    result["wall_s"] = time.perf_counter() - t0
+    (OUT / "tp_ep.json").write_text(json.dumps(result, indent=1))
+    print(f"tp/ep ok in {result['wall_s']:.1f} s (budget {TP_EP_BUDGET_S:g} s); "
+          f"flash launches over both ranks {result['launches']}", flush=True)
+    if result["wall_s"] > TP_EP_BUDGET_S:
+        raise AssertionError(f"phase 21 took {result['wall_s']:.1f} s")
+    return result
+
+
+
 def main() -> int:
     import torch
 
@@ -2841,6 +3242,7 @@ def main() -> int:
     bench = bench_phase()
     orchestration = orchestration_phase()
     baby = baby_phase()
+    tp_ep = tp_ep_phase()
     for g in (0, 1):
         a, b, c, d, e = path[g], quantized[g], ring[g], ulysses[g], pg_sharded[g]
         print(f"group {g} median step: unquantized {a['median_step_ms']:.1f} ms "
@@ -2894,6 +3296,8 @@ def main() -> int:
                     orchestration["results"][g]["kernel_launches"][name]
                     for g in (0, 1)
                 ),
+                # Phase 21's tp 2 steps, both ranks (6 q / 2 kv heads).
+                "tp_launches": tp_ep["launches"][name],
             }
             launches += sum(more.values())
             rec = {**rec, **more}

@@ -8,8 +8,10 @@ for bit. The fp32 drill ends within the fsdp-1 bars of a drill of
 one-rank groups: its losses and parameters' L1 within relative 1e-4 (the
 gradient-leaf bar; only the gradients' reduction order differs). The MoE
 and GPipe families run in such groups too, and a full-job preemption
-resumes every rank from its own snapshot. Also the trainer's refusal of a
-group size whose factoring needs tp."""
+resumes every rank from its own snapshot. Groups of four ranks run the JAX
+trainer's auto_mesh(4), fsdp 2 x tp 2, through the same kill and heal, and
+the MoE model in groups of two runs at ep 2. Also the trainer's refusal of
+a group size whose factoring needs sp."""
 
 import json
 import math
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 
 from torchft_tpu_torch.drill import kill_heal_drill, preempt_all_drill
-from torchft_tpu_torch.parallel.sharding import TP_EP_ITEM
+from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
 
 ARGS = ["--model", "debug", "--steps", "8", "--device", "cpu"]
 
@@ -54,14 +56,38 @@ def _assert_healed_and_equal(tmp_path, name, results, ranks):
         assert [rk["world_size"] for rk in res["ranks"]] == [ranks] * ranks
 
 
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """The drill of one-rank groups, the reference of the drills of larger
+    groups (run once for the module)."""
+    one = _drill(tmp_path_factory.mktemp("fsdp1"), "fsdp1", ARGS, 1)
+    assert one[0]["param_sha256"] == one[1]["param_sha256"]
+    return one
+
+
 @pytest.mark.timeout(300)
-def test_groups_of_two_ranks_kill_heal_http_within_fsdp1_bars(tmp_path):
+def test_groups_of_two_ranks_kill_heal_http_within_fsdp1_bars(tmp_path, one_rank):
     two = _drill(tmp_path, "fsdp2", ARGS, 2)
     _assert_healed_and_equal(tmp_path, "fsdp2", two, 2)
-    one = _drill(tmp_path, "fsdp1", ARGS, 1)
-    assert one[0]["param_sha256"] == one[1]["param_sha256"]
+    one = one_rank
     np.testing.assert_allclose(two[0]["losses"], one[0]["losses"], rtol=1e-4)
     np.testing.assert_allclose(two[0]["param_l1"], one[0]["param_l1"], rtol=1e-4)
+
+
+@pytest.mark.timeout(300)
+def test_groups_of_four_ranks_at_fsdp2_tp2_kill_heal_within_one_rank_bars(tmp_path, one_rank):
+    """Two groups of four ranks at fsdp 2 x tp 2 (llama_debug, HTTP heal):
+    every rank of group 1 killed after step 3 and healed rank by rank from
+    the same rank of group 0; every rank of both groups ends with equal
+    gathered parameters and AdamW state, and the losses and parameters' L1
+    within relative 1e-4 of one-rank groups."""
+    four = _drill(tmp_path, "tp", ARGS, 4)
+    _assert_healed_and_equal(tmp_path, "tp", four, 4)
+    for res in four.values():
+        assert res["mesh"] == {"dp": 1, "pp": 1, "fsdp": 2, "ep": 1, "sp": 1, "tp": 2}
+    one = one_rank
+    np.testing.assert_allclose(four[0]["losses"], one[0]["losses"], rtol=1e-4)
+    np.testing.assert_allclose(four[0]["param_l1"], one[0]["param_l1"], rtol=1e-4)
 
 
 @pytest.mark.timeout(300)
@@ -79,7 +105,8 @@ def test_groups_of_two_ranks_kill_heal_pg_sharded_int8(tmp_path):
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("model", ["moe", "pipeline"])
 def test_moe_and_pipeline_in_groups_of_two_ranks(tmp_path, model):
-    """The MoE model (its aux term over the group's whole batch) and the
+    """The MoE model at ep 2 (the JAX trainer's MoE mesh for two devices:
+    each rank runs two of the four experts on the whole batch) and the
     GPipe pipeline (each rank pipelining its rows) in groups of two ranks
     on the int4 device-quantize path: the kill, the heal and equal
     gathered state."""
@@ -90,6 +117,9 @@ def test_moe_and_pipeline_in_groups_of_two_ranks(tmp_path, model):
         env={"TORCHFT_FORCE_DEVICE_QUANT": "1"},
     )
     _assert_healed_and_equal(tmp_path, model, results, 2)
+    want = {"ep": 2} if model == "moe" else {"fsdp": 2}
+    for res in results.values():
+        assert {a: n for a, n in res["mesh"].items() if n > 1} == want
     if model == "moe":
         assert all(r["router_grad_l1"] > 0 for r in results.values())
 
@@ -119,13 +149,13 @@ def test_groups_of_two_ranks_resume_from_per_rank_snapshots(tmp_path):
 
 @pytest.mark.timeout(120)
 def test_trainer_refuses_a_group_whose_factoring_needs_tp(tmp_path):
-    """4 ranks factor as fsdp 2 x tp 2: the trainer raises naming the
-    ROADMAP item before any rendezvous or quorum."""
+    """8 ranks factor as fsdp 2 x tp 2 x sp 2: the trainer raises naming the
+    ROADMAP item (sp across ranks) before any rendezvous or quorum."""
     proc = subprocess.run(
         [sys.executable, "-m", "torchft_tpu_torch.train_hsdp", "--device", "cpu"],
-        env={"RANK": "0", "WORLD_SIZE": "4",
+        env={"RANK": "0", "WORLD_SIZE": "8",
              "PYTHONPATH": str(Path(__file__).resolve().parents[1])},
         capture_output=True, text=True, timeout=100,
     )
     assert proc.returncode != 0
-    assert TP_EP_ITEM in proc.stderr, proc.stderr[-2000:]
+    assert SP_PP_ITEM in proc.stderr, proc.stderr[-2000:]

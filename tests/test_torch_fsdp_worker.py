@@ -1,7 +1,8 @@
-"""The rank side of ``tests/test_torch_fsdp.py``: one process of a gloo
-world, run as ``python tests/test_torch_fsdp_worker.py OUT_DIR`` with
-``RANK``, ``WORLD_SIZE`` and ``GROUP_INIT_METHOD`` set (:func:`run_world`
-starts them). JAX-free: ``tests/conftest.py`` imports JAX, so the ranks run
+"""The rank side of ``tests/test_torch_fsdp.py`` and
+``tests/test_torch_tp_ep.py``: one process of a gloo world, run as ``python
+tests/test_torch_fsdp_worker.py OUT_DIR [fsdp|tp_ep]`` with ``RANK``,
+``WORLD_SIZE`` and ``GROUP_INIT_METHOD`` set (:func:`run_world` starts
+them). JAX-free: ``tests/conftest.py`` imports JAX, so the ranks run
 this file as a script, read their inputs from ``OUT_DIR/inputs.npz``
 (parameters made by flax and carried by ``params_from_jax``, tokens made
 with numpy) and write what they computed to
@@ -12,7 +13,9 @@ Every case runs the port's sharded step at the world's fsdp size on the
 CPU in fp32: gradients, train steps at ``accum_steps`` 1, 2 and 4, the
 eval step, the MoE model, block recompute, ring and Ulysses attention at
 sp=2 in-process, the GPipe pipeline over ``dp`` (a process axis) and pp=2,
-the optimizer state's round trip and the sharded heal's keys."""
+the optimizer state's round trip and the sharded heal's keys. The
+``tp_ep`` cases run the group's meshes with tensor and expert parallelism
+(:func:`_tp_ep_cases`)."""
 
 from __future__ import annotations
 
@@ -29,9 +32,12 @@ import numpy as np
 LOSS_CHUNK = 32
 
 
-def run_world(world: int, out_dir: Path, timeout_s: float = 240.0) -> None:
-    """Runs ``world`` ranks of this file over ``out_dir`` and waits for
-    them; raises with the ranks' output if one fails."""
+def run_world(
+    world: int, out_dir: Path, timeout_s: float = 240.0, cases: str = "fsdp"
+) -> None:
+    """Runs ``world`` ranks of this file over ``out_dir`` with ``cases``
+    (``fsdp`` or ``tp_ep``) and waits for them; raises with the ranks'
+    output if one fails."""
     store = out_dir / f"world{world}.store"
     store.unlink(missing_ok=True)
     repo = Path(__file__).resolve().parent.parent
@@ -49,7 +55,7 @@ def run_world(world: int, out_dir: Path, timeout_s: float = 240.0) -> None:
     for r in range(world):
         log = open(out_dir / f"world{world}_rank{r}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, __file__, str(out_dir)],
+            [sys.executable, __file__, str(out_dir), cases],
             env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
             stdout=log, stderr=subprocess.STDOUT,
         ), log))
@@ -286,7 +292,131 @@ def _cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
     return out
 
 
-def main(out_dir: str) -> None:
+def _tp_ep_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """The JAX trainer's meshes with tensor and expert parallelism: at
+    world 4 llama_debug at fsdp 2 x tp 2 (the born-sharded parameters, the
+    placements, gradients, train steps at ``accum_steps`` 1 and 2, the eval
+    step, the full logits, one grad step's counted FLOPs, the replica
+    average and the heal over 2-D placements) and
+    llama_moe_debug at fsdp 2 x ep 2; at world 2 llama_moe_debug at ep 2."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    from torchft_tpu_torch.checkpointing.sharded import (
+        build_sharded_leaf,
+        split_state_sharded,
+    )
+    from torchft_tpu_torch.models import llama_debug, llama_moe_debug
+    from torchft_tpu_torch.parallel import init_train_state, make_eval_step, make_train_step
+    from torchft_tpu_torch.parallel.mesh import group_mesh
+    from torchft_tpu_torch.parallel.train import make_grad_step
+
+    cpu = torch.device("cpu")
+    out: Dict[str, np.ndarray] = {}
+    batch = _batch(inputs)
+    f32 = dict(dtype=torch.float32)
+
+    def state_of(cfg, params, moe=False):
+        state, _ = init_train_state(cfg, group_mesh(world, rank, cpu, "moe" if moe else "dense"), cpu, seed=0)
+        _load_full(state.model, params)
+        return state
+
+    def grads_case(tag, cfg, params, moe=False):
+        state = state_of(cfg, params, moe)
+        loss, grads = make_grad_step(state)(batch)
+        out[f"{tag}/loss"] = loss.numpy()
+        for name, g in grads.items():
+            out[f"{tag}/grad/{name}"] = _full(g)
+        out[f"{tag}/mesh"] = np.array(repr(state.mesh.shape))
+        return state
+
+    grads_case("moe", llama_moe_debug(**f32), _params(inputs, "moe/"), moe=True)
+    if world == 2:
+        return out
+
+    dense = llama_debug(**f32)
+    params = _params(inputs, "p/")
+    born, shardings = init_train_state(dense, group_mesh(world, rank, cpu), cpu, seed=0)
+    for name, p in born.model.named_parameters():
+        out[f"init/{name}"] = _full(p)
+    out["shardings"] = np.array(all(
+        p.placements == shardings["params"][name]
+        for name, p in born.model.named_parameters()
+    ))
+    out["tp_split"] = np.array(
+        born.model.layers[0].attn.wq.weight.to_local().shape
+        == (dense.num_heads * dense.head_dim // 2, dense.hidden_size // 2)
+    )
+
+    # TORCHFT_PERF's count of one grad step on this rank's rows and shards,
+    # on a fresh state, as the trainer counts it.
+    from torchft_tpu_torch.perf import count_step_flops
+
+    state = state_of(dense, params)
+    out["perf/flops"] = np.array(count_step_flops(
+        make_grad_step(state), batch, preserve=(state.model, state.optimizer)
+    )["flops"])
+    state = grads_case("grad", dense, params)
+    out["eval/loss"] = make_eval_step(state)(state, batch).numpy()
+    with torch.no_grad():  # the full logits: the head's vocab blocks gathered
+        out["logits"] = state.model(batch["inputs"]).numpy()
+    for accum in (1, 2):
+        state = state_of(dense, params)
+        state, metrics = make_train_step(state, accum_steps=accum)(state, batch)
+        out[f"train{accum}/loss"] = metrics["loss"].numpy()
+        out[f"train{accum}/grad_norm"] = metrics["grad_norm"].numpy()
+        for name, p in state.model.named_parameters():
+            out[f"train{accum}/param/{name}"] = _full(p)
+            out[f"train{accum}/grad/{name}"] = _full(p.grad)
+
+    # The replica average of gradients over (fsdp, tp) placements, with a
+    # stand-in Manager whose peer holds 3x this group's gradients.
+    from torchft_tpu_torch.ddp import DistributedDataParallel
+
+    class _Work:
+        def __init__(self, value):
+            self.value = value
+
+        def wait(self):
+            return self.value if isinstance(self.value, list) else [self.value]
+
+    class _Manager:
+        def allreduce(self, x, should_quantize=False, quantize_bits=8, **_):
+            return _Work([t * 2 for t in x] if isinstance(x, list) else x * 2)
+
+    grads = {n: p.grad for n, p in state.model.named_parameters()}
+    os.environ["TORCHFT_FORCE_DEVICE_QUANT"] = "1"
+    for tag, quant in (("fp32", False), ("int8", True)):
+        avg = DistributedDataParallel(_Manager()).allreduce_grads(
+            grads, should_quantize=quant
+        )
+        out[f"allreduce/{tag}"] = np.array(list(avg) == list(grads) and all(
+            avg[n].placements == g.placements
+            and torch.equal(avg[n].full_tensor(), 2 * g.full_tensor())
+            for n, g in grads.items()
+        ))
+    del os.environ["TORCHFT_FORCE_DEVICE_QUANT"]
+
+    # The sharded heal's keys for a [8, 16] leaf over (fsdp, tp), dims 0
+    # and 1; rebuilt as a fresh local shard.
+    dmesh = state.device_mesh
+    full = torch.arange(128, dtype=torch.float32).reshape(8, 16)
+    c = state.mesh.process_coordinate()
+    leaf = DTensor.from_local(
+        full.chunk(2, 0)[c["fsdp"]].chunk(2, 1)[c["tp"]].clone(), dmesh,
+        (Shard(0), Shard(1)),
+    )
+    meta, bufs = split_state_sharded({"w": leaf})
+    out["heal/keys"] = np.array(repr(meta["w"].keys))
+    built = build_sharded_leaf(meta["w"], bufs, leaf)
+    out["heal/rebuilt"] = np.array(
+        torch.equal(built.full_tensor(), full) and built.placements == leaf.placements
+        and built.to_local().data_ptr() != leaf.to_local().data_ptr()
+    )
+    return out
+
+
+def main(out_dir: str, cases: str = "fsdp") -> None:
     import torch
     import torch.distributed as dist
 
@@ -295,10 +425,10 @@ def main(out_dir: str) -> None:
     torch.set_num_threads(1)
     rank, world = init_group(torch.device("cpu"))
     inputs = np.load(os.path.join(out_dir, "inputs.npz"))
-    out = _cases(inputs, rank, world)
+    out = (_tp_ep_cases if cases == "tp_ep" else _cases)(inputs, rank, world)
     np.savez(os.path.join(out_dir, f"world{world}_rank{rank}.npz"), **out)
     dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])

@@ -216,15 +216,15 @@ def test_flash_fold_autoselect_matches_jax():
 
 def test_ring_refuses_sharded_batch_or_heads():
     """dp and fsdp are process axes: a mesh with fsdp=2 runs the ring over
-    the rows this rank holds, as the sp=2 mesh alone does. Head sharding
-    (tp) still raises, under the tensor-parallelism item."""
+    the rows this rank holds, as the sp=2 mesh alone does. sp beside tp
+    across ranks still raises, under the sequence-parallelism item."""
     q, k, v = (torch.from_numpy(a) for a in _arrays((2, 64, 2, 8), (2, 64, 1, 8), (2, 64, 1, 8)))
     sharded = make_ring_attention(make_mesh(fsdp=2, sp=2, devices=[CPU] * 4))
     alone = make_ring_attention(make_mesh(sp=2, devices=[CPU] * 2))
     assert torch.equal(sharded(q, k, v), alone(q, k, v))
     with pytest.raises(
         NotImplementedError,
-        match="ROADMAP.md queue 1: tensor and expert parallelism across ranks",
+        match="ROADMAP.md queue 1: sequence and pipeline parallelism across ranks",
     ):
         make_ring_attention(make_mesh(sp=2, tp=2, devices=[CPU] * 4))
 

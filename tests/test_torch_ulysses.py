@@ -140,8 +140,8 @@ def test_gate_chooses_flash_or_dense_as_jax(monkeypatch, sp):
 
 def test_ulysses_refuses_sharded_batch_or_heads_and_odd_heads():
     """dp and fsdp are process axes: a mesh with fsdp=2 runs Ulysses over
-    the rows this rank holds, as the sp=2 mesh alone does. Head sharding
-    (tp) still raises, under the tensor-parallelism item."""
+    the rows this rank holds, as the sp=2 mesh alone does. sp beside tp
+    across ranks still raises, under the sequence-parallelism item."""
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(2, 32, 4, 8, generator=gen)
     kv = torch.randn(2, 32, 2, 8, generator=gen)
@@ -150,7 +150,7 @@ def test_ulysses_refuses_sharded_batch_or_heads_and_odd_heads():
     assert torch.equal(sharded(q, kv, kv), alone(q, kv, kv))
     with pytest.raises(
         NotImplementedError,
-        match="ROADMAP.md queue 1: tensor and expert parallelism across ranks",
+        match="ROADMAP.md queue 1: sequence and pipeline parallelism across ranks",
     ):
         make_ulysses_attention(make_mesh(sp=2, tp=2, devices=[CPU] * 4))
     uly = make_ulysses_attention(make_mesh(sp=4, devices=[CPU] * 4))

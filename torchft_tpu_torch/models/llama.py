@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchft_tpu_torch._dtensor import local as _local
 from torchft_tpu_torch.ops.flash_attention import flash_attention, supports
 
 
@@ -56,9 +57,9 @@ class LlamaConfig:
     flash_block_q: int = 512
     flash_block_k: int = 512
     # Mixture of experts: num_experts == 0 -> dense MLP, else MoEMLP (top-k
-    # routing, dense one-hot dispatch and combine). Experts are not placed
-    # over an 'ep' axis: above 1 it raises (ROADMAP.md queue 1: tensor and
-    # expert parallelism across ranks).
+    # routing, dense one-hot dispatch and combine). Over an 'ep' process
+    # axis each rank holds and runs its own experts
+    # (parallel.train.init_train_state).
     num_experts: int = 0
     num_experts_per_tok: int = 2
     # Per-sequence expert buffer = capacity_factor * S * k / E tokens;
@@ -160,6 +161,89 @@ def _linear(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.
     return F.linear(x.to(dtype), weight.to(dtype))
 
 
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism across the ranks of a group
+# ---------------------------------------------------------------------------
+#
+# A module bound to a tensor-parallel group (``tp_group``; the experts also
+# ``ep_group``: ``Transformer.bind_model_parallel``) holds its parameters as
+# DTensors sharded over those groups (``parallel/sharding.py``'s plan) and
+# computes with each rank's local shard. Its input is the same on every rank
+# of the groups; each rank computes its part of a sum (its heads, its
+# feature columns, its experts), and the parts are summed over the groups:
+# Megatron-LM's two operators, ``_ToGroups`` where the replicated input
+# enters and ``_SumOverGroups`` where the sum leaves.
+
+
+class _ToGroups(torch.autograd.Function):
+    """Identity forward; the gradient summed over the ranks of each group
+    (every rank used the input for its own part of a sum)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, groups: tuple) -> torch.Tensor:
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(grad, group=group)
+        return grad, None
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """The sum of each rank's part over the ranks of each group; the
+    gradient passes through (every rank's output is the same sum)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, groups: tuple) -> torch.Tensor:
+        import torch.distributed as dist
+
+        out = x.contiguous().clone()
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor):
+        return grad, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The whole tensor from each rank's block of rows (dim 0, in group rank
+    order); the gradient is this rank's block of the whole one's (every
+    rank computed the same function of the whole tensor)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
+        import torch.distributed as dist
+
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        ctx.rows, ctx.rank = x.shape[0], r
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor):
+        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def _groups(*groups: Any) -> tuple:
+    return tuple(g for g in groups if g is not None)
+
+
+def _to_groups(x: torch.Tensor, groups: tuple) -> torch.Tensor:
+    return _ToGroups.apply(x, groups) if groups else x
+
+
+def _sum_over_groups(x: torch.Tensor, groups: tuple) -> torch.Tensor:
+    return _SumOverGroups.apply(x, groups) if groups else x
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5) -> None:
         super().__init__()
@@ -189,14 +273,22 @@ class Attention(nn.Module):
         self.wk = nn.Linear(H, cfg.num_kv_heads * Dh, bias=False)
         self.wv = nn.Linear(H, cfg.num_kv_heads * Dh, bias=False)
         self.wo = nn.Linear(cfg.num_heads * Dh, H, bias=False)
+        # Bound by Transformer.bind_model_parallel: q, k and v are then
+        # this rank's contiguous block of heads (colwise), wo its block of
+        # input columns (rowwise), and the output is summed over the group.
+        self.tp_group: Any = None
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
-        heads = lambda t, n: t.view(B, S, n, cfg.head_dim)  # noqa: E731
-        q = heads(_linear(x, self.wq.weight, cfg.dtype), cfg.num_heads)
-        k = heads(_linear(x, self.wk.weight, cfg.dtype), cfg.num_kv_heads)
-        v = heads(_linear(x, self.wv.weight, cfg.dtype), cfg.num_kv_heads)
+        groups = _groups(self.tp_group)
+        x = _to_groups(x, groups)
+        # The head counts are the local projections': at tp the rank's
+        # blocks of q and kv heads, GQA's q-per-kv kept.
+        heads = lambda t: t.view(B, S, -1, cfg.head_dim)  # noqa: E731
+        q = heads(_linear(x, _local(self.wq.weight), cfg.dtype))
+        k = heads(_linear(x, _local(self.wk.weight), cfg.dtype))
+        v = heads(_linear(x, _local(self.wv.weight), cfg.dtype))
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if cfg.attn_impl in ("ring", "ulysses"):
@@ -213,7 +305,8 @@ class Attention(nn.Module):
             )
         else:
             out = dense_attention(q, k, v)
-        return _linear(out.reshape(B, S, -1), self.wo.weight, cfg.dtype)
+        out = _linear(out.reshape(B, S, -1), _local(self.wo.weight), cfg.dtype)
+        return _sum_over_groups(out, groups)
 
 
 class MLP(nn.Module):
@@ -224,12 +317,18 @@ class MLP(nn.Module):
         self.gate = nn.Linear(H, I, bias=False)
         self.up = nn.Linear(H, I, bias=False)
         self.down = nn.Linear(I, H, bias=False)
+        # Bound by Transformer.bind_model_parallel: gate and up colwise,
+        # down rowwise, the output summed over the group.
+        self.tp_group: Any = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        gate = _linear(x, self.gate.weight, dt)
-        up = _linear(x, self.up.weight, dt)
-        return _linear(F.silu(gate) * up, self.down.weight, dt)
+        groups = _groups(self.tp_group)
+        x = _to_groups(x, groups)
+        gate = _linear(x, _local(self.gate.weight), dt)
+        up = _linear(x, _local(self.up.weight), dt)
+        out = _linear(F.silu(gate) * up, _local(self.down.weight), dt)
+        return _sum_over_groups(out, groups)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -263,7 +362,14 @@ class MoEMLP(nn.Module):
     ``self.aux`` (``E * sum_e f_e * p_e``), which the JAX model sows, and
     its two factors (the top-1 share ``f`` and the mean probability ``p``
     of each expert) in ``self.load``, so that ranks holding parts of one
-    batch can average them first."""
+    batch can average them first.
+
+    Bound to an expert-parallel group (``ep_group``), a rank holds and runs
+    its own contiguous block of experts; bound to a tensor-parallel group
+    (``tp_group``), its block of each expert's feature columns. The tokens
+    are the same on every rank of both groups (the batch shards over dp and
+    fsdp only, as in the JAX mesh), the router runs whole on each, and the
+    combine is summed over both groups."""
 
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
@@ -280,6 +386,8 @@ class MoEMLP(nn.Module):
         self.experts_down = nn.Parameter(_lecun_normal_(torch.empty(E, I, H), I * E))
         self.aux: Optional[torch.Tensor] = None
         self.load: Optional[tuple] = None
+        self.tp_group: Any = None
+        self.ep_group: Any = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -311,13 +419,28 @@ class MoEMLP(nn.Module):
             combine = combine + disp_k * gate_vals[..., k][..., None, None]
 
         dt = cfg.dtype
-        xe = torch.einsum("bsec,bsh->bech", dispatch.to(dt), x.to(dt))
+        groups = _groups(self.ep_group, self.tp_group)
+        w_gate, w_up, w_down = (
+            _local(w) for w in (self.experts_gate, self.experts_up, self.experts_down)
+        )
+        x_e = x
+        if groups:
+            # This rank's experts; x and the combine weights carry
+            # gradients of this rank's part of the sum only.
+            import torch.distributed as dist
+
+            n = w_gate.shape[0]
+            e0 = n * dist.get_rank(self.ep_group) if self.ep_group is not None else 0
+            x_e = _to_groups(x, groups)
+            dispatch = dispatch[:, :, e0:e0 + n]
+            combine = _to_groups(combine, groups)[:, :, e0:e0 + n]
+        xe = torch.einsum("bsec,bsh->bech", dispatch.to(dt), x_e.to(dt))
         hidden = F.silu(
-            torch.einsum("bech,ehi->beci", xe, self.experts_gate.to(dt))
-        ) * torch.einsum("bech,ehi->beci", xe, self.experts_up.to(dt))
-        ye = torch.einsum("beci,eih->bech", hidden, self.experts_down.to(dt))
+            torch.einsum("bech,ehi->beci", xe, w_gate.to(dt))
+        ) * torch.einsum("bech,ehi->beci", xe, w_up.to(dt))
+        ye = torch.einsum("beci,eih->bech", hidden, w_down.to(dt))
         out = torch.einsum("bsec,bech->bsh", combine.to(dt), ye)
-        return out.to(x.dtype)
+        return _sum_over_groups(out, groups).to(x.dtype)
 
 
 class _GroupMean(torch.autograd.Function):
@@ -372,6 +495,22 @@ class Transformer(nn.Module):
             if cfg.tie_embeddings
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
         )
+        # Bound by bind_model_parallel: the embedding and the head are then
+        # this rank's block of vocab rows.
+        self.tp_group: Any = None
+
+    def bind_model_parallel(self, tp_group: Any = None, ep_group: Any = None) -> None:
+        """Binds the model to the torch process groups of its tensor- and
+        expert-parallel ranks (``parallel.train.init_train_state``, after
+        the plan has placed the parameters): every projection, the
+        embedding, the head and the experts then compute with this rank's
+        shards and sum over the groups. None: no such axis."""
+        self.tp_group = tp_group
+        for m in self.modules():
+            if isinstance(m, (Attention, MLP, MoEMLP)):
+                m.tp_group = tp_group
+            if isinstance(m, MoEMLP):
+                m.ep_group = ep_group
 
     def router_aux(self, group: Any = None) -> Optional[torch.Tensor]:
         """The mean over layers of the MoE layers' load-balancing terms from
@@ -399,9 +538,45 @@ class Transformer(nn.Module):
             for name, m in self.named_modules() if isinstance(m, MoEMLP)
         ]
 
+    def head_block(self) -> tuple:
+        """(this rank's block of the vocab projection's rows, the vocab id
+        of its first row): the whole [V, H] (the tied embedding or lm_head)
+        and 0 where the model is bound to no tensor-parallel group."""
+        w = self.embed.weight if self.lm_head is None else self.lm_head.weight
+        if self.tp_group is None:
+            return w, 0
+        import torch.distributed as dist
+
+        w = _local(w)
+        return w, w.shape[0] * dist.get_rank(self.tp_group)
+
     def head_weight(self) -> torch.Tensor:
-        """The vocab projection [V, H] (the tied embedding or lm_head)."""
-        return self.embed.weight if self.lm_head is None else self.lm_head.weight
+        """The vocab projection [V, H] (the tied embedding or lm_head).
+        Bound to a tensor-parallel group, whose ranks each hold a block of
+        its vocab rows, the blocks are gathered (the gradient of a block is
+        its part of the whole one's: every rank computes the same function
+        of it). The chunked loss reads :meth:`head_block` instead."""
+        w, _ = self.head_block()
+        if self.tp_group is None:
+            return w
+        return _GatherRows.apply(w, self.tp_group)
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embeddings [B,S,H] of ``tokens`` in cfg.dtype. Bound to a
+        tensor-parallel group, each rank looks up the tokens in its block of
+        vocab rows (zero elsewhere) and the blocks' rows are summed over
+        the group: one nonzero term each, so the sum is exact."""
+        dt = self.cfg.dtype
+        if self.tp_group is None:
+            return F.embedding(tokens, self.embed.weight.to(dt))
+        import torch.distributed as dist
+
+        w = _local(self.embed.weight)
+        n = w.shape[0]
+        ids = tokens - n * dist.get_rank(self.tp_group)
+        hit = ((ids >= 0) & (ids < n))[..., None]
+        x = F.embedding(ids.clamp(0, n - 1), w.to(dt))
+        return _SumOverGroups.apply(torch.where(hit, x, 0), (self.tp_group,))
 
     def call(self, fn: Callable[..., Any], *args: Any) -> Any:
         """``fn(self, *args)``: a loss or a schedule that reads the model's
@@ -420,7 +595,7 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             positions = positions.expand(tokens.shape)
-        x = F.embedding(tokens, self.embed.weight.to(cfg.dtype))
+        x = self.embed_tokens(tokens)
         cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
         for block in self.layers:
             if cfg.remat and torch.is_grad_enabled():

@@ -13,24 +13,24 @@ order (outermost = slowest-varying over the device order):
 
 The axes are of two kinds.
 
-- ``dp`` and ``fsdp`` are **process axes**: a replica group is
-  ``WORLD_SIZE`` processes, one device each, as torchrun launches them
-  (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``). They form a torch
-  ``DeviceMesh`` over ("dp", "fsdp") (:func:`group_device_mesh`), over which
-  FSDP2 shards parameters and AdamW state (``parallel/sharding.py``,
-  ``parallel/train.py``); each rank holds its rows of every batch.
-- ``pp``, ``ep``, ``sp`` and ``tp`` are **in-process axes**: a
-  :class:`Mesh` is an array of ``torch.device``, and a process runs the
-  ranks of these axes one after another over its own devices. A device may
-  appear more than once: a mesh of one card repeated stands in for the JAX
-  package's virtual host devices, so the ring and Ulysses run their ``sp``
-  ranks, and the pipeline its ``pp`` stages, on that card. ``tp`` and
-  ``ep`` above 1 raise (``sharding.TP_EP_ITEM``).
+- ``dp``, ``fsdp``, ``ep`` and ``tp`` are **process axes**: a replica
+  group is ``WORLD_SIZE`` processes, one device each, as torchrun launches
+  them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), a rank's coordinate
+  row-major over them in ``MESH_AXES`` order. They form a torch
+  ``DeviceMesh`` over ("dp", "fsdp", "ep", "tp") (:func:`group_device_mesh`).
+  The tensor-parallel plan places the ``tp`` and ``ep`` dims of the
+  parameters over their mesh dims, FSDP2 then shards the rest over
+  (dp, fsdp) (``parallel/sharding.py``, ``parallel/train.py``); each rank
+  holds the rows of every batch at its (dp, fsdp) coordinate, and the ranks
+  that differ only in ``ep`` or ``tp`` hold the same rows.
+- ``pp`` and ``sp`` are **in-process axes**: a :class:`Mesh` is an array of
+  ``torch.device``, and a process runs the ranks of these axes one after
+  another over its own devices. A device may appear more than once: a mesh
+  of one card repeated stands in for the JAX package's virtual host
+  devices, so the ring and Ulysses run their ``sp`` ranks, and the pipeline
+  its ``pp`` stages, on that card. Placing them across ranks is not ported
+  (``sharding.SP_PP_ITEM``).
 
-A group's :class:`Mesh` (:func:`group_mesh`) names this process's device at
-every coordinate of the process axes and carries the process's rank over
-them (``process_rank``). The fault-tolerant replica axis is not a mesh
-axis: it is the Manager's (``device_mesh.py``).
 """
 
 from __future__ import annotations
@@ -42,17 +42,18 @@ import numpy as np
 import torch
 
 MESH_AXES = ("dp", "pp", "fsdp", "ep", "sp", "tp")
-# Axes over the processes of a replica group (torch DeviceMesh, FSDP2); the
-# others run inside each process.
-PROCESS_AXES = ("dp", "fsdp")
+# Axes over the processes of a replica group (torch DeviceMesh: FSDP2 over
+# dp and fsdp, the tensor-parallel plan over ep and tp), in MESH_AXES order;
+# the others run inside each process.
+PROCESS_AXES = ("dp", "fsdp", "ep", "tp")
 
 
 class Mesh:
     """``devices``: an object array of ``torch.device`` with one dim per
     name in ``axis_names``. ``shape`` maps each axis to its size, in axis
     order, as ``jax.sharding.Mesh.shape`` does. ``process_rank``: this
-    process's rank over the process axes (row-major over dp, fsdp) in a
-    group of processes; None for a mesh one process holds whole."""
+    process's rank over the process axes (row-major over dp, fsdp, ep, tp)
+    in a group of processes; None for a mesh one process holds whole."""
 
     def __init__(
         self,
@@ -195,23 +196,50 @@ def auto_mesh(
 
 
 def group_mesh(
-    world_size: int, rank: int, device: torch.device
+    world_size: int, rank: int, device: torch.device, family: str = "dense"
 ) -> Mesh:
     """The mesh of a replica group of ``world_size`` processes as seen by
-    process ``rank``: :func:`auto_mesh`'s factoring of ``world_size`` (the
-    JAX trainer's ``auto_mesh(n_dev)``), ``device`` at every coordinate,
-    and ``rank`` as its ``process_rank``. Raises where the factoring needs
-    an in-process axis above 1 (4 ranks factor as fsdp 2 x tp 2): those axes
-    take devices of this process, not ranks."""
-    from torchft_tpu_torch.parallel.sharding import TP_EP_ITEM
+    process ``rank``: the JAX trainer's mesh for that many devices
+    (``train_hsdp.py``), ``device`` at every coordinate, and ``rank`` as
+    its ``process_rank``. ``family`` is the trainer's model: dense models
+    (any name but ``moe`` and ``pipeline``) take :func:`auto_mesh`'s
+    factoring (4 ranks: fsdp 2 x tp 2). ``moe`` on an even world gives its
+    experts an ``ep`` extent of 2: ``fsdp = 2 if (n/2) % 2 == 0 else 1``,
+    ``tp = n / 2 / fsdp`` (2 ranks: ep 2; 4: fsdp 2 x ep 2). ``pipeline``
+    runs its stages in-process over auto_mesh's ``fsdp``.
 
-    mesh = auto_mesh(world_size, devices=[device] * world_size)
-    inner = [f"{a}={mesh.shape[a]}" for a in ("sp", "tp") if mesh.shape[a] > 1]
-    if inner:
+    Raises where the factoring needs ``sp`` above 1 (8 dense ranks factor
+    as fsdp 2 x tp 2 x sp 2: sp is an in-process axis); for ``pipeline``
+    where it needs ``tp`` (4 ranks: the JAX trainer places the GPipe stages
+    on other ranks there, ``make_mesh(pp=2, dp=2)``); and for ``moe`` where
+    it needs both ``ep`` and ``tp`` (6 ranks and up), a plan no test holds
+    yet."""
+    from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
+
+    devices = [device] * world_size
+    if family == "moe" and world_size % 2 == 0:
+        rest = world_size // 2
+        fsdp = 2 if rest % 2 == 0 else 1
+        mesh = make_mesh(fsdp=fsdp, ep=2, tp=rest // fsdp, devices=devices)
+    else:
+        mesh = auto_mesh(world_size, devices=devices)
+    where = f"a {family} group of {world_size} ranks factors as {mesh.shape}"
+    if mesh.shape["sp"] > 1:
         raise NotImplementedError(
-            f"a group of {world_size} ranks factors as {mesh.shape}: "
-            f"{', '.join(inner)} would need tensor or sequence parallelism "
-            f"across ranks ({TP_EP_ITEM}); run groups of 1, 2 or 3 ranks"
+            f"{where}: sp={mesh.shape['sp']} would need sequence parallelism "
+            f"across ranks ({SP_PP_ITEM}); run a group of fewer than 8 ranks"
+        )
+    if family == "pipeline" and mesh.shape["tp"] > 1:
+        raise NotImplementedError(
+            f"{where}: the JAX trainer puts the GPipe stages on other ranks "
+            f"there, make_mesh(pp=2, dp={world_size // 2}) ({SP_PP_ITEM}); "
+            "run a group of 1 or 2 ranks"
+        )
+    if mesh.shape["ep"] > 1 and mesh.shape["tp"] > 1:
+        raise NotImplementedError(
+            f"{where}: experts placed over both ep and tp have no test yet "
+            "(ROADMAP.md queue 1, what is left of tensor and expert "
+            "parallelism across ranks); run a group of 2 or 4 ranks"
         )
     mesh.process_rank = rank
     return mesh
@@ -265,16 +293,21 @@ def init_group(device: torch.device) -> Tuple[int, int]:
 
 
 def group_device_mesh(mesh: Mesh) -> Any:
-    """The torch ``DeviceMesh`` over the process axes ("dp", "fsdp") of
-    ``mesh``, on the default process group (:func:`init_group`), whose
-    size must be their product."""
+    """The torch ``DeviceMesh`` over the process axes of ``mesh``, on the
+    default process group (:func:`init_group`), whose size must be their
+    product: ``fsdp`` always, ``dp``, ``ep`` and ``tp`` where above 1, in
+    that order. FSDP2 composes with the tensor-parallel plan on the
+    concatenation of its (dp, fsdp) mesh and the plan's (ep, tp) mesh, so
+    the group's mesh is exactly those dims."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape = tuple(mesh.shape[a] for a in PROCESS_AXES)
-    if dist.get_world_size() != shape[0] * shape[1]:
+    names = tuple(a for a in PROCESS_AXES if a == "fsdp" or mesh.shape[a] > 1)
+    shape = tuple(mesh.shape[a] for a in names)
+    if dist.get_world_size() != int(np.prod(shape)):
         raise ValueError(
-            f"a world of {dist.get_world_size()} ranks for process axes {shape}"
+            f"a world of {dist.get_world_size()} ranks for process axes "
+            f"{dict(zip(names, shape))}"
         )
     device_type = mesh.devices.flat[0].type
-    return init_device_mesh(device_type, shape, mesh_dim_names=PROCESS_AXES)
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)

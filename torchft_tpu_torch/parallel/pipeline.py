@@ -23,7 +23,7 @@ the last stage, on full logits (not the chunked loss), as in JAX. ``dp``
 is a process axis (``parallel/mesh.py``): each rank pipelines its own rows
 of the batch, and its loss takes the whole batch's token count as
 ``denom``. A pipeline whose stages sit on other ranks is not ported
-(``sharding.TP_EP_ITEM``).
+(``sharding.SP_PP_ITEM``).
 """
 
 from __future__ import annotations
@@ -114,7 +114,7 @@ def make_pipeline_loss(
         if B % n_micro != 0:
             raise ValueError(f"local batch {B} not divisible by n_micro {n_micro}")
         mb = B // n_micro
-        x = F.embedding(inputs, model.embed.weight.to(cfg.dtype))
+        x = model.embed_tokens(inputs)
         positions = torch.arange(S, device=devices[0]).expand(mb, S)
         cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
 

@@ -9,8 +9,8 @@ ranks run in one SPMD program and ``ppermute`` moves the blocks. Here
 its own device, and the rotate step moves a block to the receiving rank's
 device with ``.to()``: a no-op on a mesh that repeats one device (the
 one-card stand-in for the JAX tests' virtual devices). A ring across
-distinct cards, with the rotation overlapping the fold, is not ported
-(ROADMAP.md).
+distinct cards or ranks, with the rotation overlapping the fold, is not
+ported (``sharding.SP_PP_ITEM``).
 
 Two per-shard bodies, as in JAX: :func:`ring_attention_shard_flash` folds
 each block with the offset-block flash kernels
@@ -30,7 +30,7 @@ import torch
 
 from torchft_tpu_torch.ops.flash_attention import flash_attention_block, supports
 from torchft_tpu_torch.parallel.mesh import Mesh
-from torchft_tpu_torch.parallel.sharding import TP_EP_ITEM
+from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
 
 Rotate = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -163,13 +163,16 @@ def make_ring_attention(mesh: Mesh, use_flash: Optional[bool] = None):
 
     ``use_flash``: fold each block with the flash kernels instead of the
     dense fold; None picks them for shards the flash gate takes (>= 256
-    tokens, block-divisible). The batch is this rank's rows: dp and fsdp
-    are process axes (``parallel/mesh.py``). Head sharding (the JAX ring's
-    tp axis) is not ported: tp above 1 raises."""
-    if mesh.shape["tp"] > 1:
+    tokens, block-divisible). The batch is this rank's rows and the heads
+    are this rank's heads: dp, fsdp and tp are process axes
+    (``parallel/mesh.py``). A ring of sp above 1 inside a tensor-parallel
+    group (tp above 1) raises: the sequence ranks of a group's ranks are
+    not placed across ranks."""
+    if mesh.shape["tp"] > 1 and mesh.shape["sp"] > 1:
         raise NotImplementedError(
-            f"ring attention on a mesh with tp={mesh.shape['tp']}: head sharding "
-            f"across ranks is not ported ({TP_EP_ITEM})"
+            f"ring attention over sp={mesh.shape['sp']} on a mesh with "
+            f"tp={mesh.shape['tp']}: sequence parallelism beside tensor "
+            f"parallelism across ranks is not ported ({SP_PP_ITEM})"
         )
     devices = mesh.axis_devices("sp")
     n = len(devices)

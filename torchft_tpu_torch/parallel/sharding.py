@@ -13,29 +13,44 @@ dim of the parameter.
 - Contraction-input dims shard over ``fsdp``, head and feature output dims
   over ``tp``, experts over ``ep``; norms replicate.
 - Batches shard their rows over (dp, fsdp), contiguous, as JAX's
-  ``P(("dp", "fsdp"), "sp")`` lays them out; the sequence dim stays whole on
+  ``P(("dp", "fsdp"), "sp")`` lays them out; the ranks that differ only in
+  ``ep`` or ``tp`` take the same rows, and the sequence dim stays whole on
   a rank (``sp`` is an in-process axis: ring and Ulysses split it).
 
-FSDP2 places what the rules say on the process axes: ``Shard(d)`` for the
-``fsdp`` dim over the group's ``fsdp`` mesh dim, replicated over ``dp``
+The parameters are placed in two steps, as FSDP2 composes with tensor
+parallelism. First the **tensor-parallel plan** (:func:`tp_plan`): each
+parameter whose spec names ``tp`` or ``ep`` on a mesh dim above 1 becomes a
+DTensor over those dims, ``Shard(d)`` each, as torch's ``ColwiseParallel``
+(``wq``, ``wk``, ``wv``, ``gate``, ``up``, ``lm_head``: the output dim) and
+``RowwiseParallel`` (``wo``, ``down``: the input dim; ``embed``: the vocab)
+place them, and the experts over ``ep`` with their feature dims over
+``tp``. The model reads each rank's local shard and runs the plan's
+collectives itself (``models/llama.py``), because its projections cast
+input and weight to ``cfg.dtype`` outside ``nn.Linear.forward``, where
+those styles' hooks would sit. Then FSDP2 shards the ``fsdp`` dim over the
+group's (dp, fsdp) mesh dims, replicated over ``dp``
 (:func:`param_placements`). It shards every parameter it manages, so a
 parameter whose spec names no ``fsdp`` dim (the norm scales) takes its dim
-0, where JAX replicates it: a placement, not another value. The ``tp`` and
-``ep`` entries stay data here (checked against JAX by the tests); above 1
-they raise (:data:`TP_EP_ITEM`).
+0, where JAX replicates it: a placement, not another value. ``sp`` and
+``pp`` across ranks are not ported (:data:`SP_PP_ITEM`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
-from torchft_tpu_torch.parallel.mesh import Mesh
+from torchft_tpu_torch.parallel.mesh import PROCESS_AXES, Mesh
 
-# Tensor and expert parallelism: the tp rules onto a torch tensor-parallel
-# plan, experts placed over ep, a pipeline whose stages sit on other ranks.
-TP_EP_ITEM = "ROADMAP.md queue 1: tensor and expert parallelism across ranks"
+# What is still not placed across ranks: ring and Ulysses attention over a
+# process axis, and a pipeline whose stages sit on other ranks (the JAX
+# trainer's make_mesh(pp=2, dp=n/2)).
+SP_PP_ITEM = "ROADMAP.md queue 1: sequence and pipeline parallelism across ranks"
+
+# The process axes the tensor-parallel plan places, in mesh order.
+MODEL_AXES = ("ep", "tp")
 
 Spec = Tuple[Optional[str], ...]
 
@@ -100,15 +115,32 @@ def tree_specs_like(tree: Any, spec_by_name: Dict[str, Spec]) -> Any:
     return walk(tree, ())
 
 
-def check_process_mesh(mesh: Mesh) -> None:
-    """Raises where ``mesh`` needs ``tp`` or ``ep`` above 1: their rules
-    are data here, their placement across ranks is not ported."""
-    over = [f"{a}={mesh.shape[a]}" for a in ("tp", "ep") if mesh.shape[a] > 1]
-    if over:
-        raise NotImplementedError(
-            f"a mesh with {', '.join(over)}: tensor and expert parallelism "
-            f"are not placed across ranks ({TP_EP_ITEM})"
-        )
+def model_dims(spec: Spec, shape: Mapping[str, int]) -> Tuple[Tuple[str, int], ...]:
+    """``((axis, dim), ...)``: each of ``ep`` and ``tp`` (in mesh order)
+    that ``spec`` names and ``shape`` (axis -> size) gives above 1, with the
+    parameter dim it shards."""
+    return tuple(
+        (a, spec.index(a)) for a in MODEL_AXES if a in spec and shape.get(a, 1) > 1
+    )
+
+
+def tp_plan(model: torch.nn.Module, mesh: Mesh) -> Dict[str, Tuple[Tuple[str, int], ...]]:
+    """The tensor-parallel plan of ``model`` on ``mesh``: {parameter name:
+    :func:`model_dims`} for every parameter with a dim over ``ep`` or
+    ``tp`` above 1 (none where both are 1). Raises where such a dim does
+    not divide evenly."""
+    plan = {}
+    for name, p in model.named_parameters():
+        dims = model_dims(spec_for(name, p.dim()), mesh.shape)
+        for axis, d in dims:
+            if p.shape[d] % mesh.shape[axis]:
+                raise ValueError(
+                    f"{name} {tuple(p.shape)}: dim {d} does not split over "
+                    f"{axis}={mesh.shape[axis]}"
+                )
+        if dims:
+            plan[name] = dims
+    return plan
 
 
 def shard_dim(spec: Spec) -> int:
@@ -117,18 +149,21 @@ def shard_dim(spec: Spec) -> int:
 
 
 def param_placements(model: torch.nn.Module, device_mesh: Any) -> Dict[str, tuple]:
-    """{parameter name: DTensor placements over ``device_mesh``} (the
-    group's ("dp", "fsdp") mesh of :func:`parallel.mesh.group_device_mesh`):
-    ``Replicate()`` over dp and ``Shard(d)`` over fsdp, ``d`` from
-    :func:`shard_dim`. What ``fully_shard``'s ``shard_placement_fn``
-    returns, and what a sharded state is checked against."""
+    """{parameter name: DTensor placements} as the sharded state holds them
+    (``parallel.train.init_train_state``) over the group's ``device_mesh``
+    (:func:`parallel.mesh.group_device_mesh`): ``Replicate()`` over dp
+    where dp is above 1, ``Shard(d)`` over fsdp (``d`` from
+    :func:`shard_dim`; what ``fully_shard``'s ``shard_placement_fn``
+    returns), then ``Shard(d)`` over each of the plan's ep and tp dims
+    (:func:`model_dims`): the order of FSDP2's mesh, its (dp, fsdp) mesh
+    followed by the plan's."""
     from torch.distributed.tensor import Replicate, Shard
 
+    shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.mesh.shape))
+    dp = (Replicate(),) if shape.get("dp", 1) > 1 else ()
     return {
-        name: tuple(
-            Shard(shard_dim(spec)) if axis == "fsdp" else Replicate()
-            for axis in device_mesh.mesh_dim_names
-        )
+        name: dp + (Shard(shard_dim(spec)),)
+        + tuple(Shard(d) for _, d in model_dims(spec, shape))
         for name, spec in param_specs(model).items()
     }
 
@@ -140,15 +175,19 @@ param_shardings = param_placements
 def batch_sharding(mesh: Mesh, rank: int, batch_size: int) -> slice:
     """The rows of a global ``[batch_size, S]`` batch that process ``rank``
     of the group holds: the batch split over (dp, fsdp) in contiguous
-    blocks, rank row-major over (dp, fsdp), as JAX's ``P(("dp", "fsdp"),
-    "sp")`` lays it out."""
+    blocks, the rank's (dp, fsdp) coordinate (row-major over the process
+    axes) picking the block, as JAX's ``P(("dp", "fsdp"), "sp")`` lays it
+    out. Ranks that differ only in ep or tp take the same rows."""
+    shape = [mesh.shape[a] for a in PROCESS_AXES]
     n = mesh.shape["dp"] * mesh.shape["fsdp"]
     if batch_size % n:
         raise ValueError(f"batch {batch_size} not divisible by dp*fsdp={n}")
-    if not 0 <= rank < n:
-        raise ValueError(f"rank {rank} outside a group of {n}")
+    if not 0 <= rank < int(np.prod(shape)):
+        raise ValueError(f"rank {rank} outside a group of {int(np.prod(shape))}")
+    coord = dict(zip(PROCESS_AXES, np.unravel_index(rank, shape)))
+    block = int(coord["dp"]) * mesh.shape["fsdp"] + int(coord["fsdp"])
     rows = batch_size // n
-    return slice(rank * rows, (rank + 1) * rows)
+    return slice(block * rows, (block + 1) * rows)
 
 
 def local_slices(t: Any) -> Tuple[slice, ...]:

@@ -5,8 +5,9 @@ or Ulysses attention to a mesh), the chunked vocab loss with the MoE
 router's aux term and the default AdamW, in two forms.
 
 - **Sharded** (the JAX package's pjit step): :func:`init_train_state`
-  builds the state born sharded over the group's process axes (dp, fsdp)
-  with FSDP2, and :func:`make_train_step` (``accum_steps``),
+  builds the state born sharded over the group's process axes: the
+  tensor-parallel plan over (ep, tp), then FSDP2 over (dp, fsdp); and
+  :func:`make_train_step` (``accum_steps``),
   :func:`make_grad_step` (the DDP variant ``train_hsdp`` runs: the
   optimizer applies after the Manager's replica-axis gradient allreduce)
   and :func:`make_eval_step` run on each rank's rows of the global batch.
@@ -17,7 +18,10 @@ router's aux term and the default AdamW, in two forms.
 
 The losses of the ranks of a group add up to the global batch's: each rank
 normalizes its rows' token losses by the whole batch's mask count and
-scales by the group size, because FSDP2 averages the group's gradients.
+scales by the size of its batch group (the ranks of (dp, fsdp) at its own
+(ep, tp) coordinate, which hold the batch's rows between them), because
+FSDP2 averages the gradients over that group. The ranks of (ep, tp) at one
+(dp, fsdp) coordinate hold the same rows and compute the same loss.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -36,17 +41,20 @@ from torchft_tpu_torch.models.llama import (
     RMSNorm,
     Transformer,
     _linear,
+    _SumOverGroups,
+    _to_groups,
 )
 from torchft_tpu_torch.parallel.mesh import Mesh, group_device_mesh
 from torchft_tpu_torch.parallel.pipeline import make_pipeline_loss
 from torchft_tpu_torch.parallel.ring_attention import make_ring_attention
 from torchft_tpu_torch.parallel.sharding import (
+    MODEL_AXES,
     batch_sharding,
-    check_process_mesh,
     param_placements,
     param_specs,
     shard_dim,
     spec_for,
+    tp_plan,
     tree_specs_like,
 )
 from torchft_tpu_torch.parallel.ulysses import make_ulysses_attention
@@ -82,13 +90,39 @@ def default_optimizer(params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW
 _LOSS_CHUNK = _knobs.get_int("TORCHFT_LOSS_CHUNK")
 
 
+def _vocab_parallel_losses(
+    logits: torch.Tensor, targets: torch.Tensor, v0: int, group: Any
+) -> torch.Tensor:
+    """Per-token cross entropy [N] from each rank's block of the vocab's
+    fp32 logits [N, V/tp] (vocab ids ``v0`` onward): the max and the sum of
+    exponentials taken over the group's blocks, the target's logit from the
+    block that holds it. Differentiable; every rank gets the same losses."""
+    import torch.distributed as dist
+
+    m = logits.detach().amax(-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    z = logits - m[:, None]
+    total = _SumOverGroups.apply(z.exp().sum(-1), (group,))
+    ids = targets - v0
+    hit = (ids >= 0) & (ids < logits.shape[-1])
+    picked = z.gather(-1, ids.clamp(0, logits.shape[-1] - 1)[:, None])[:, 0]
+    picked = _SumOverGroups.apply(torch.where(hit, picked, 0.0), (group,))
+    return total.log() - picked
+
+
 def _chunk_loss(
-    h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor
+    h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+    group: Any = None, v0: int = 0,
 ) -> torch.Tensor:
     logits = F.linear(h, w).float()  # [B, C, V], exists only in this chunk
-    losses = F.cross_entropy(
-        logits.flatten(0, 1), targets.flatten(), reduction="none"
-    )
+    if group is None:
+        losses = F.cross_entropy(
+            logits.flatten(0, 1), targets.flatten(), reduction="none"
+        )
+    else:
+        losses = _vocab_parallel_losses(
+            logits.flatten(0, 1), targets.flatten(), v0, group
+        )
     return (losses * mask.flatten()).sum()
 
 
@@ -104,7 +138,14 @@ def _loss_body(
     the token count the losses are normalized by (default this batch's
     mask count). ``group``: the torch process group of ranks that each hold
     rows of one batch; the loss is then scaled by its size and the MoE aux
-    term taken over the whole batch (see the module docstring)."""
+    term taken over the whole batch (see the module docstring).
+
+    A model bound to a tensor-parallel group holds its head in blocks of
+    vocab rows: the chunked loss computes each rank's block of the logits
+    and a vocab-parallel softmax (a max and a sum over the group,
+    :func:`_vocab_parallel_losses`), and the hidden states' gradient is
+    summed over the group; the full-logits path of an odd sequence length
+    gathers the head (``Transformer.head_weight``)."""
     cfg = model.cfg
     B, S = inputs.shape
     C = min(_LOSS_CHUNK, S)
@@ -126,8 +167,12 @@ def _loss_body(
         )
         return finish((losses * mask_f.flatten()).sum())
 
+    tp = model.tp_group
     h = model.hidden(inputs)
-    w = model.head_weight().to(cfg.dtype)
+    if tp is not None:
+        h = _to_groups(h, (tp,))
+    w, v0 = model.head_block()
+    w = w.to(cfg.dtype)
     total = h.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S, C):
         sl = slice(c0, c0 + C)
@@ -137,6 +182,8 @@ def _loss_body(
             w,
             targets[:, sl],
             mask_f[:, sl],
+            tp,
+            v0,
             use_reentrant=False,
         )
     return finish(total)
@@ -192,33 +239,89 @@ def pipeline_grad_step(
 @dataclasses.dataclass
 class TrainState:
     """One rank's training state: the count of applied steps, the model
-    (its parameters FSDP2 DTensors over ``device_mesh``), its optimizer,
-    the group's :class:`Mesh` and torch ``DeviceMesh``."""
+    (its parameters DTensors over ``device_mesh``), its optimizer, the
+    group's :class:`Mesh` and torch ``DeviceMesh``, and the process group
+    of this rank's batch group (the (dp, fsdp) ranks at its (ep, tp)
+    coordinate; None where that is this rank alone)."""
 
     step: int
     model: Transformer
     optimizer: torch.optim.Optimizer
     mesh: Mesh
     device_mesh: Any
+    batch_group: Any = None
 
 
 def _fsdp_mesh(mesh: Mesh, device_mesh: Any) -> Any:
     """What ``fully_shard`` takes: the ("dp", "fsdp") mesh for HSDP (dp
     replicas of an fsdp-sharded state) when dp is above 1, else its fsdp
     dim alone (FSDP)."""
-    return device_mesh if mesh.shape["dp"] > 1 else device_mesh["fsdp"]
+    return device_mesh["dp", "fsdp"] if mesh.shape["dp"] > 1 else device_mesh["fsdp"]
+
+
+def _batch_group(mesh: Mesh, device_mesh: Any) -> Any:
+    """The process group of this rank's batch group: None where it is this
+    rank alone (no collective: a mean over one rank is the value), the whole
+    world where ep and tp are 1, else the (dp, fsdp) ranks at this rank's
+    (ep, tp) coordinate (every rank makes every such group, in one order,
+    as ``new_group`` requires)."""
+    import torch.distributed as dist
+
+    shape = [mesh.shape[a] for a in ("dp", "fsdp", *MODEL_AXES)]
+    if shape[0] * shape[1] == 1:
+        return None
+    if int(np.prod(shape[2:])) == 1:
+        return dist.group.WORLD
+    ranks = np.arange(int(np.prod(shape))).reshape(shape[0] * shape[1], -1)
+    mine = None
+    for column in ranks.T:
+        group = dist.new_group([int(r) for r in column])
+        if dist.get_rank() in column:
+            mine = group
+    return mine
+
+
+def _place(module: torch.nn.Module, prefix: str, plan: Dict[str, Any],
+           mesh: Mesh, device_mesh: Any) -> None:
+    """The tensor-parallel plan applied to the parameters of ``module``
+    (named ``prefix`` + their name): each becomes a DTensor over its plan's
+    (ep, tp) mesh dims, ``Shard(d)`` each, this rank's block of the whole
+    parameter as its local shard (every rank made the whole one from the
+    same seed)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    coord = mesh.process_coordinate()
+    for name, p in list(module.named_parameters()):
+        dims = plan.get(prefix + name)
+        if dims is None:
+            continue
+        local = p.detach()
+        for axis, d in dims:
+            local = local.chunk(mesh.shape[axis], d)[coord[axis]]
+        axes = tuple(a for a, _ in dims)
+        sub = device_mesh[axes[0]] if len(axes) == 1 else device_mesh[axes]
+        owner, _, leaf = name.rpartition(".")
+        setattr(
+            module.get_submodule(owner) if owner else module, leaf,
+            torch.nn.Parameter(DTensor.from_local(
+                local.clone(memory_format=torch.contiguous_format), sub,
+                tuple(Shard(d) for _, d in dims), run_check=False,
+                shape=p.shape, stride=p.stride(),
+            )),
+        )
 
 
 def state_shardings(model: Transformer, device_mesh: Any) -> Dict[str, Any]:
-    """The placements of a :class:`TrainState`'s tensors over
-    ``device_mesh`` (the mesh ``fully_shard`` took): ``params`` by
-    name (``sharding.param_placements``), ``opt_state`` by name, where
-    AdamW's ``exp_avg`` and ``exp_avg_sq`` follow their parameter and its
-    ``step`` (a CPU scalar) is replicated, and the replicated ``step``."""
+    """The placements of a :class:`TrainState`'s tensors over the group's
+    ``device_mesh`` (FSDP2's mesh: its (dp, fsdp) dims followed by the
+    plan's): ``params`` by name (``sharding.param_placements``),
+    ``opt_state`` by name, where AdamW's ``exp_avg`` and ``exp_avg_sq``
+    follow their parameter and its ``step`` (a CPU scalar) is replicated,
+    and the replicated ``step``."""
     from torch.distributed.tensor import Replicate
 
     placements = param_placements(model, device_mesh)
-    replicated = (Replicate(),) * len(device_mesh.mesh_dim_names)
+    replicated = (Replicate(),)
     moments = {name: None for name in placements}
     specs = tree_specs_like(
         {"exp_avg": moments, "exp_avg_sq": moments, "step": None},
@@ -249,32 +352,41 @@ def init_train_state(
 ) -> Tuple[TrainState, Dict[str, Any]]:
     """The state of this rank, born sharded, and its placements
     (:func:`state_shardings`). The group's torch world must be up
-    (``parallel.mesh.init_group``) with ``mesh``'s dp*fsdp ranks.
+    (``parallel.mesh.init_group``) with ``mesh``'s dp*fsdp*ep*tp ranks.
 
     The model is made on the meta device, then its parts are made for real
     in the order ``Transformer.__init__`` makes them, each initialised on
     the host from ``torch.manual_seed(seed)``'s stream and moved to
-    ``device``: the embedding, then each :class:`Block`, which is
-    ``fully_shard``-ed at once, then the final norm and the head, then the
-    root. Peak memory is the sharded blocks, the root's own parameters and
-    one whole block. At one rank the parameters are those of
-    ``torch.manual_seed(seed); build_model(cfg, mesh).to(device)``, bit for
-    bit.
+    ``device``: the embedding, then each :class:`Block`, then the final
+    norm and the head, then the root. Each part is placed by the
+    tensor-parallel plan as it is made (``sharding.tp_plan``: this rank's
+    block of each parameter with an ep or tp dim), and each block is
+    ``fully_shard``-ed at once, FSDP2 composing with the plan. Peak memory
+    is the sharded blocks, the root's own parameters and one whole block.
+    Gathered, the parameters are those of ``torch.manual_seed(seed);
+    build_model(cfg, mesh).to(device)``, bit for bit, at any group size;
+    at one rank each local shard is the whole tensor.
 
-    A group of one rank is one FSDP2 unit, the root: a unit per block would
-    free no memory (its shard is the whole block) and overlap no
+    A batch group of one rank is one FSDP2 unit, the root: a unit per block
+    would free no memory (its shard is the whole block) and overlap no
     communication (there is none), and each unit costs its hooks' host
     time in every forward and backward."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     from torch.distributed.tensor import Shard
 
-    check_process_mesh(mesh)
     device_mesh = group_device_mesh(mesh)
     fsdp_mesh = _fsdp_mesh(mesh, device_mesh)
     torch.manual_seed(seed)
     with torch.device("meta"):
         model = build_model(cfg, mesh)
     cfg = model.cfg  # with the mesh's attention bound
+    tp = mesh.shape["tp"]
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"{cfg.num_heads} q and {cfg.num_kv_heads} kv heads do not split "
+            f"over tp={tp}"
+        )
+    plan = tp_plan(model, mesh)
 
     def shard(module: torch.nn.Module, named: Iterable[Tuple[str, Any]]) -> None:
         place = {id(p): Shard(shard_dim(spec_for(n, p.dim()))) for n, p in named}
@@ -282,22 +394,31 @@ def init_train_state(
             module, mesh=fsdp_mesh, shard_placement_fn=lambda p: place[id(p)]
         )
 
+    def made(module: torch.nn.Module, prefix: str) -> torch.nn.Module:
+        module = module.to(device)
+        _place(module, prefix, plan, mesh, device_mesh)
+        return module
+
     unit_per_block = mesh.shape["dp"] * mesh.shape["fsdp"] > 1
-    model.embed = torch.nn.Embedding(cfg.vocab_size, cfg.hidden_size).to(device)
+    model.embed = made(torch.nn.Embedding(cfg.vocab_size, cfg.hidden_size), "embed.")
     for i in range(cfg.num_layers):
-        block = model.layers[i] = Block(cfg).to(device)
+        block = model.layers[i] = made(Block(cfg), f"layers.{i}.")
         if unit_per_block:
             shard(block, (
                 (f"layers.{i}.{n}", p) for n, p in block.named_parameters()
             ))
-    model.final_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps).to(device)
+    model.final_norm = made(RMSNorm(cfg.hidden_size, cfg.norm_eps), "final_norm.")
     if not cfg.tie_embeddings:
-        model.lm_head = torch.nn.Linear(
+        model.lm_head = made(torch.nn.Linear(
             cfg.hidden_size, cfg.vocab_size, bias=False
-        ).to(device)
+        ), "lm_head.")
     shard(model, (
         (n, p) for n, p in model.named_parameters()
         if not (unit_per_block and n.startswith("layers."))
+    ))
+    model.bind_model_parallel(*(
+        device_mesh.get_group(a) if mesh.shape[a] > 1 else None
+        for a in ("tp", "ep")
     ))
     # The losses read the head (and a pipeline the embedding) outside
     # forward: model.call gathers the root's parameters for them.
@@ -308,23 +429,21 @@ def init_train_state(
         optimizer=default_optimizer(model.parameters()),
         mesh=mesh,
         device_mesh=device_mesh,
+        batch_group=_batch_group(mesh, device_mesh),
     )
-    return state, state_shardings(model, fsdp_mesh)
+    return state, state_shardings(model, device_mesh)
 
 
-def _group() -> Tuple[Any, int]:
-    import torch.distributed as dist
-
-    return dist.group.WORLD, dist.get_world_size()
-
-
-def _global_mean(loss: torch.Tensor, n: int) -> torch.Tensor:
-    """The group's mean of the ranks' (scaled) losses: the batch's loss."""
+def _global_mean(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """The batch group's mean of the ranks' (scaled) losses: the batch's
+    loss."""
     import torch.distributed as dist
 
     loss = loss.detach().clone()
-    dist.all_reduce(loss)
-    return loss / n
+    if state.batch_group is None:
+        return loss
+    dist.all_reduce(loss, group=state.batch_group)
+    return loss / dist.get_world_size(state.batch_group)
 
 
 def _microbatches(
@@ -353,13 +472,16 @@ def _rank_loss(
     denom: torch.Tensor,
     loss_fn: Optional[Callable[..., torch.Tensor]],
 ) -> torch.Tensor:
-    group, n = _group()
+    import torch.distributed as dist
+
+    group = state.batch_group
     if loss_fn is None:
         return state.model.call(
             _loss_body, part["inputs"], part["targets"], part["mask"], denom,
             group,
         )
-    return state.model.call(loss_fn, part, denom) * n
+    loss = state.model.call(loss_fn, part, denom)
+    return loss if group is None else loss * dist.get_world_size(group)
 
 
 def make_grad_step(
@@ -373,7 +495,6 @@ def make_grad_step(
     group's average), left unapplied for the replica-axis allreduce: the
     DDP variant. ``loss_fn(model, rows, denom)`` replaces the chunked loss
     (``make_pipeline_loss`` builds one)."""
-    _, n = _group()
 
     def grad_step(batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         model = state.model
@@ -382,23 +503,33 @@ def make_grad_step(
         loss = _rank_loss(state, part, denom, loss_fn)
         loss.backward()
         grads = {name: p.grad for name, p in model.named_parameters()}
-        return _global_mean(loss, n), grads
+        return _global_mean(state, loss), grads
 
     return grad_step
 
 
-def _grad_norm(state: TrainState, grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def _grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """The global norm of the gradients: the square root of the sum of the
     squares over the whole tensors, from each rank's local shards summed
-    over the fsdp ranks (the dp ranks hold copies)."""
+    over the group's ranks, each shard's square weighted by one over the
+    number of ranks holding a copy of it (the dp ranks, and the ep and tp
+    ranks of a parameter the plan does not split: the norms, the
+    router)."""
     import torch.distributed as dist
+    from torch.distributed.tensor import Shard
 
-    local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
-    sq = torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in local]
-    ).square().sum()
-    dist.all_reduce(sq, group=state.device_mesh.get_group("fsdp"))
-    return sq.sqrt()
+    world = dist.get_world_size()
+    sq = []
+    for g in grads:
+        shards = int(np.prod([
+            g.device_mesh.size(i) for i, p in enumerate(g.placements)
+            if isinstance(p, Shard)
+        ]))
+        s = torch.linalg.vector_norm(g.to_local(), dtype=torch.float32).square()
+        sq.append(s if shards == world else s * (shards / world))
+    total = torch.stack(sq).sum()
+    dist.all_reduce(total)
+    return total.sqrt()
 
 
 def make_train_step(
@@ -413,7 +544,6 @@ def make_train_step(
     microbatch's reduced gradient into the sharded one); the gradients and
     the loss are then averaged over the microbatches and the optimizer
     applies once, as the JAX step does."""
-    _, n = _group()
 
     def step(state: TrainState, batch: Batch):
         model = state.model
@@ -422,7 +552,7 @@ def make_train_step(
         for part, denom in _microbatches(state, batch, accum_steps):
             loss = _rank_loss(state, part, denom, None)
             loss.backward()
-            loss = _global_mean(loss, n)
+            loss = _global_mean(state, loss)
             loss_sum = loss if loss_sum is None else loss_sum + loss
         params = [p for p in model.parameters() if p.grad is not None]
         if accum_steps > 1:
@@ -431,7 +561,7 @@ def make_train_step(
                 for p in params:
                     p.grad.mul_(inv)
             loss_sum = loss_sum * inv
-        grad_norm = _grad_norm(state, (p.grad for p in params))
+        grad_norm = _grad_norm(p.grad for p in params)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss_sum, "grad_norm": grad_norm}
@@ -444,11 +574,10 @@ def make_eval_step(
 ) -> Callable[[TrainState, Batch], torch.Tensor]:
     """``eval_step(state, batch) -> loss``: the global batch's loss, each
     rank computing its rows, without gradients."""
-    _, n = _group()
 
     def eval_step(state: TrainState, batch: Batch) -> torch.Tensor:
         with torch.no_grad():
             ((part, denom),) = _microbatches(state, batch, 1)
-            return _global_mean(_rank_loss(state, part, denom, None), n)
+            return _global_mean(state, _rank_loss(state, part, denom, None))
 
     return eval_step

@@ -35,7 +35,7 @@ import torch
 from torchft_tpu_torch.models.llama import dense_attention
 from torchft_tpu_torch.ops.flash_attention import flash_attention, supports
 from torchft_tpu_torch.parallel.mesh import Mesh
-from torchft_tpu_torch.parallel.sharding import TP_EP_ITEM
+from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
 
 
 def _kv_expand_factor(h_q: int, h_kv: int, sp: int) -> int:
@@ -100,13 +100,14 @@ def make_ulysses_attention(mesh: Mesh, use_flash: Optional[bool] = None):
     over the mesh's ``sp`` devices, re-sharded to heads, attended, re-sharded
     back and gathered on q's device. Differentiable. The all-to-all
     counterpart of :func:`make_ring_attention`, with the same limits: the
-    batch is this rank's rows (dp and fsdp are process axes), and head
-    sharding (the JAX version's tp axis) is not ported: tp above 1
-    raises."""
-    if mesh.shape["tp"] > 1:
+    batch is this rank's rows and the heads this rank's heads (dp, fsdp and
+    tp are process axes), and ``sp`` runs inside the process; sp above 1
+    inside a tensor-parallel group (tp above 1) raises, as the ring's."""
+    if mesh.shape["tp"] > 1 and mesh.shape["sp"] > 1:
         raise NotImplementedError(
-            f"Ulysses attention on a mesh with tp={mesh.shape['tp']}: head sharding "
-            f"across ranks is not ported ({TP_EP_ITEM})"
+            f"Ulysses attention over sp={mesh.shape['sp']} on a mesh with "
+            f"tp={mesh.shape['tp']}: sequence parallelism beside tensor "
+            f"parallelism across ranks is not ported ({SP_PP_ITEM})"
         )
     devices = mesh.axis_devices("sp")
     n = len(devices)

@@ -177,8 +177,14 @@ def main(argv=None) -> int:
     device = trainer_device(args.device, "train_hsdp")
     group = os.environ.get("REPLICA_GROUP_ID", "0")
     rank, world_size = group_env()
-    mesh = group_mesh(world_size, rank, device)  # raises before any rendezvous
+    # The JAX trainer's mesh for this many devices and this model; raises
+    # before any rendezvous.
+    mesh = group_mesh(world_size, rank, device, args.model)
     init_group(device)
+    logging.info(
+        "[group %s] rank %d of %d, mesh %s", group, rank, world_size,
+        {a: n for a, n in mesh.shape.items() if n > 1} or {"fsdp": 1},
+    )
     B, S = args.batch, args.seq
     cfg = {
         "debug": llama_debug,
@@ -226,7 +232,10 @@ def main(argv=None) -> int:
                 "targets": torch.roll(probe, -1, 1),
                 "mask": torch.ones((B, S), dtype=torch.int32, device=device),
             },
-            tokens_per_step=B * S // world_size, preserve=(model, optimizer),
+            # This rank's rows: the batch splits over (dp, fsdp); the ep
+            # and tp ranks of one row block each count their own shards.
+            tokens_per_step=B * S // (mesh.shape["dp"] * mesh.shape["fsdp"]),
+            preserve=(model, optimizer),
         )
 
     # Heal contract. http: the recovering group receives params + AdamW
@@ -416,6 +425,7 @@ def main(argv=None) -> int:
                 "group": group,
                 "rank": rank,
                 "world_size": world_size,
+                "mesh": mesh.shape,
                 "final_step": manager.current_step(),
                 "param_l1": float(sum(abs(h).sum() for h in host)),
                 "param_sha256": hashlib.sha256(

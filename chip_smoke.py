@@ -26,8 +26,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version element by element (``TOL``; out only on rows that see a key) at
    the ring path's shapes (B=8, Sq=Skv=1024, llama_small's heads, bf16) and
    offsets (0,0), (1024,0), (1024,512), (0,1024) (all masked: out 0, lse
-   <= -1e29, zero gradients), one fp32 case and one ragged case; timed at
-   (0,0) and (1024,0). Then ``make_ring_attention`` at sp=4 on a mesh that
+   <= -1e29, zero gradients), one fp32 case, one ragged case and phase
+   21's sp 2 shards (Sq=Skv=512 at offsets (512,0), bf16 and fp32); timed
+   at (0,0) and (1024,0). Then ``make_ring_attention`` at sp=4 on a mesh that
    repeats the card (B=2, S=4096): out, dq, dk, dv against the plain
    full-sequence versions within the ring limit derived beside
    ``RING_SLACK``, 16 launches of each block kernel.
@@ -194,27 +195,43 @@ Phases, in order; any failure exits non-zero and prints no result line:
    quorum respawns it (a new ``child_pid``) and the next allreduce commits
    the fp32 bytes. Prints each allreduce's seconds with both groups, the
    spawn and respawn seconds and ``df /dev/shm``.
-21. Tensor and expert parallelism: two ranks on the card in a
-   ``cpu:gloo,cuda:gloo`` world (NCCL refuses two ranks on one device;
-   ``init_group`` returns at once for it), each first checking the sums of
-   ``all_reduce``, ``all_gather_into_tensor`` and
+21. Tensor, expert, sequence and pipeline parallelism: two ranks on the
+   card in a ``cpu:gloo,cuda:gloo`` world (NCCL refuses two ranks on one
+   device; ``init_group`` returns at once for it), each first checking the
+   sums of ``all_reduce``, ``all_gather_into_tensor`` and
    ``reduce_scatter_tensor`` on the card's tensors: llama_small at its
    full width at ``make_mesh(tp=2)`` (6 q / 2 kv heads a rank, flash,
-   B=8, S=1024) and llama_moe_debug at ``make_mesh(ep=2)`` (B=8, S=64),
-   each in fp32 and bf16: ``init_train_state`` and two ``make_train_step``
-   steps, held on rank 0 to the same two steps of the mesh-free model
-   (tp 1 in one process): fp32 to the CPU bars (``TP_FP32``), bf16 to
-   bars set from readings (``TP_BF16``), every parameter after the first
-   AdamW step to ``adamw_excess``'s bound; the planted fault (every
-   ``wo``'s two tp shards swapped) must fail the loss and the gradient
-   bars; the MoE router's gradient nonzero; kernels 1-3 launched in both
-   ranks (phase 2 holds them to their plain versions at this shape).
-   Prints its wall time, under ``TP_EP_BUDGET_S``.
+   B=8, S=1024), llama_moe_debug at ``make_mesh(ep=2)`` (B=8, S=64),
+   llama_small at ``make_mesh(sp=2)`` (B=8, S=1024: 512 tokens a rank)
+   with the default flash attention (k and v gathered, kernels 4-6),
+   ring (kernels 4-6) and Ulysses (kernels 1-3 on 6 q / 2 kv heads a
+   rank), and llama_small at ``make_mesh(pp=2)`` (6 layers a stage, 2
+   microbatches, flash), each in fp32 and bf16: ``init_train_state`` and
+   two steps (``make_train_step``; the pipeline's grad step and AdamW),
+   held on rank 0 to the same two steps on one rank (the mesh-free model;
+   the pipeline's one-rank schedule): fp32 to the CPU bars (``TP_FP32``),
+   bf16 to bars set from readings (``TP_BF16``), the pipeline bit for bit
+   (``PP_BARS``), every parameter after the first AdamW step to
+   ``adamw_excess``'s bound; each family's planted fault
+   (``PLANTED_FAULTS``: wo's tp shards swapped, RoPE offset 0 on rank 1,
+   a ring hop that skips a block, a stage that drops its microbatch) must
+   fail the case's bars (the tp fault both); the MoE router's gradient
+   nonzero;
+   each case's kernels launched in both ranks (phases 2 and 3 hold them to
+   their plain versions at these shapes); both ranks must exit 0. Beside
+   them a throwaway pair of processes, in a world of its own, asks gloo
+   once for ``all_to_all_single`` and ``send``/``recv`` of the card's
+   tensors, and the answers print (the port calls ``all_to_all_single`` as
+   it is and stages point-to-point through the host where gloo carries
+   the card's tensors, chosen by the group's backend, never by the answer;
+   the send aborts its process, which is why the cases' ranks never make
+   it). Prints its wall time, under ``TP_EP_BUDGET_S``.
 22. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
-   pg-sharded, preemption, orchestration and tp drills', phase 17's and
-   the bench's launches too, the quantize rows the DDP, MoE, GPipe
-   drills', the bench's and the Baby group's), the card line, and the
-   last line: ``{"ok": true, "device": {...}}``.
+   pg-sharded, preemption and orchestration drills', phase 17's, the
+   bench's and phase 21's launches too, the block rows phase 21's, the
+   quantize rows the DDP, MoE, GPipe drills', the bench's and the Baby
+   group's), the card line, and the last line: ``{"ok": true, "device":
+   {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
 or of the JAX package.
@@ -1005,6 +1022,10 @@ def block_phase() -> dict:
             (OUT / "block_timing_1024_0.json").write_text(json.dumps(rec, indent=1))
     check_block_case(2, 1024, 1024, 12, 4, 64, fp32, 1024, 512, timed=False, seed=20)
     check_block_case(1, 200, 328, 4, 2, 32, fp32, 300, 100, timed=False, seed=21)
+    # Phase 21's sp 2 shards: B=8, 512 tokens a rank, the second block at
+    # its offset, in both dtypes.
+    for i, dtype in enumerate((bf16, fp32)):
+        check_block_case(8, 512, 512, 12, 4, 64, dtype, 512, 0, timed=False, seed=25 + i)
 
     sp = 4
     from torchft_tpu_torch.parallel import make_ring_attention
@@ -2873,8 +2894,42 @@ def adamw_excess(got, want, g_got, g_want) -> float:
 TP_EP_CASES = [(family, dtype, axis)
                for family, axis in (("dense", "tp"), ("moe", "ep"))
                for dtype in ("float32", "bfloat16")]
-# Phase 21's wall.
-TP_EP_BUDGET_S = 90.0
+# Sequence and pipeline parallelism across the two ranks: the dense model
+# at sp 2 with the default attention (the flash setting on the card: k and
+# v gathered, the blocks folded by the offset-block kernels), ring and
+# Ulysses, and at pp 2 (llama_small: 6 layers a stage; 2 microbatches).
+SP_PP_CASES = [(family, dtype, axis)
+               for family, axis in (("default", "sp"), ("ring", "sp"),
+                                    ("ulysses", "sp"), ("pipeline", "pp"))
+               for dtype in ("float32", "bfloat16")]
+# The planted fault of each family, run in fp32 on the first step: each
+# must fail the loss and the gradient bars. dense: every wo's two tp
+# shards swapped; default and Ulysses: rank 1's RoPE positions start at 0;
+# ring: a hop that moves no block (each rank folds its own twice);
+# pipeline: stage 0 sends zeros for its last microbatch.
+PLANTED_FAULTS = {
+    "dense": "wo's tp shards swapped",
+    "default": "RoPE offset 0 on rank 1",
+    "ulysses": "RoPE offset 0 on rank 1",
+    "ring": "a ring hop that skips a block",
+    "pipeline": "stage 0 drops its last microbatch",
+}
+# The pipeline's bars: its stages run the one rank's arithmetic, and the
+# sums over pp add zeros, so it must be bit for bit in both dtypes.
+PP_BARS = {"loss": 0.0, "grad": 0.0}
+# Phase 21's wall: 117.8-125.7 s on the card with the sp and pp cases,
+# 35.0-52.2 s for the tp and ep cases alone (PERF.md §6).
+TP_EP_BUDGET_S = 150.0
+
+
+def case_name(family: str, dtype: str, axis: str) -> str:
+    return f"{family} {dtype} {axis}=2"
+
+
+def case_bars(family: str, dtype: str) -> dict:
+    if family == "pipeline":
+        return PP_BARS
+    return TP_FP32 if dtype == "float32" else TP_BF16
 
 
 def gather_full(t):
@@ -2903,17 +2958,84 @@ def gather_full(t):
     return full
 
 
+def plant_fault(family: str, rank: int):
+    """Installs ``family``'s planted fault (``PLANTED_FAULTS``) in this
+    rank's process; returns the function that removes it."""
+    import torch
+
+    from torchft_tpu_torch.models.llama import Transformer
+    from torchft_tpu_torch.parallel import pipeline, ring_attention
+
+    if family in ("default", "ulysses"):
+        saved = Transformer.sequence_offset
+        Transformer.sequence_offset = lambda self, n: 0
+        return lambda: setattr(Transformer, "sequence_offset", saved)
+    if family == "ring":
+        saved = ring_attention.ring_hop
+        ring_attention.ring_hop = lambda group: (lambda k, v: (k, v))
+        return lambda: setattr(ring_attention, "ring_hop", saved)
+    if family == "pipeline":
+        cls = pipeline._SendNext
+        send = cls.apply  # torch.autograd.Function's, bound to the class
+
+        def drop_last(y, group, peer, tag):
+            # The graph stays whole (y * 0), so the backward's receives
+            # still pair with stage 1's sends.
+            return send(y * 0 if tag == 1 else y, group, peer, tag)
+
+        cls.apply = staticmethod(drop_last)
+        return lambda: delattr(cls, "apply")
+    raise ValueError(family)
+
+
+def gloo_answers(dev) -> dict:
+    """Whether the world's gloo takes ``all_to_all_single`` and
+    point-to-point ``send``/``recv`` of ``dev``'s tensors (the port calls
+    the first as it is and stages the second through the host where gloo
+    carries the card's tensors, chosen by the backend): each tried once on
+    4 floats, all-to-all first. An error is the answer; a crash ends the
+    process (the caller reads the missing answer)."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {}
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+    try:
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        want = torch.tensor([0, 1, 10, 11] if rank == 0 else [2, 3, 12, 13],
+                            dtype=torch.float32)
+        out["all_to_all_single"] = "ok" if torch.equal(y.cpu(), want) else f"wrong: {y.tolist()}"
+    except Exception as e:  # noqa: BLE001 - the probe's answer
+        out["all_to_all_single"] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    try:
+        if rank == 0:
+            dist.send(x, 1)
+            out["send_recv"] = "sent"
+        else:
+            y = torch.zeros_like(x)
+            dist.recv(y, 0)
+            out["send_recv"] = "ok" if torch.equal(y.cpu(), torch.arange(4.0)) else f"wrong: {y.tolist()}"
+    except Exception as e:  # noqa: BLE001 - the probe's answer
+        out["send_recv"] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
 def tp_ep_rank(spec: dict) -> None:
     """One rank of phase 21's two-rank world (``spec``: rank, init, device,
-    model, out). Joins a gloo world that carries the device's tensors
-    (NCCL refuses two ranks on one card) before ``init_group``, which then
-    returns at once; per case: ``init_train_state`` at the case's mesh and
-    two ``make_train_step`` steps, counting the flash launches. Rank 0 then
-    runs the same two steps on the mesh-free model of the same seed (the
-    arithmetic of ``make_train_step`` at one rank, phase 17) and the dense
-    cases' planted fault (the two tp shards of every ``wo`` swapped), and
-    writes the differences to ``out/rank0.json``; every rank writes its
-    launches to ``out/rank<r>.json``."""
+    model, out, cases). Joins a gloo world that carries the device's
+    tensors (NCCL refuses two ranks on one card) before ``init_group``,
+    which then returns at once; per case: ``init_train_state`` at the
+    case's mesh and two steps (``make_train_step``; the pipeline's
+    ``make_grad_step`` with ``make_pipeline_loss`` and an AdamW step),
+    counting the flash and block kernels' launches; each family's planted
+    fault in fp32 on one step, from the same state's first parameters
+    (:func:`case_runner`). Rank 0 then runs the same two steps on one
+    rank (the mesh-free model of the same seed, whole-sequence flash
+    attention; the pipeline's one-rank schedule), once per reference and
+    dtype, and writes the differences to ``out/rank0.json``; every rank
+    writes its launches to ``out/rank<r>.json``."""
     import dataclasses
 
     import torch
@@ -2921,13 +3043,15 @@ def tp_ep_rank(spec: dict) -> None:
 
     from torchft_tpu_torch.models import llama_debug, llama_moe_debug, llama_small
     from torchft_tpu_torch.ops import flash_attention
-    from torchft_tpu_torch.parallel import make_mesh
+    from torchft_tpu_torch.parallel import make_mesh, make_pipeline_loss
     from torchft_tpu_torch.parallel.mesh import init_group
+    from torchft_tpu_torch.parallel.pipeline import gather_stages
     from torchft_tpu_torch.parallel.train import (
         build_model,
         default_optimizer,
         grad_step,
         init_train_state,
+        make_grad_step,
         make_train_step,
     )
 
@@ -2961,72 +3085,136 @@ def tp_ep_rank(spec: dict) -> None:
     dense = (dataclasses.replace(llama_small(), attn_impl="flash", flash_min_seq=1024)
              if small else llama_debug())
     shapes = {"dense": (8, 1024 if small else 64), "moe": (8, 64)}
+    kernels = FLASH_KERNELS + BLOCK_KERNELS
     out = {"launches": {}, "diff": {}, "loss": {}}
+    refs = {}
 
-    def batch(family: str, k: int, vocab: int) -> dict:
-        B, S = shapes[family]
+    def batch(shape: tuple, k: int, vocab: int) -> dict:
+        B, S = shape
         g = torch.Generator(device=dev).manual_seed(k)
         x = torch.randint(0, vocab, (B, S), generator=g, device=dev)
         return {"inputs": x, "targets": torch.roll(x, -1, 1),
                 "mask": torch.ones_like(x, dtype=torch.int32)}
 
-    def gathered(state) -> tuple:
-        named = list(state.model.named_parameters())
-        return ({n: gather_full(p.grad) for n, p in named},
-                {n: gather_full(p.detach()) for n, p in named})
-
     def sync() -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def case_cfg(family: str, dtype: str):
+        base = llama_moe_debug() if family == "moe" else dense
+        if family in ("ring", "ulysses"):
+            base = dataclasses.replace(base, attn_impl=family)
+        return dataclasses.replace(base, dtype=getattr(torch, dtype), remat=False)
+
+    def case_runner(family: str, cfg, mesh, axis: str):
+        """``run(batches, fault=False) -> (losses, first step's gradients,
+        parameters after it)``, gathered whole, of the case's steps on one
+        state made here: each call starts from the state's first
+        parameters with a fresh AdamW, so the planted fault's run needs no
+        state of its own. Over sp every rank holds the whole model, so
+        this rank's own tensors are the whole ones."""
+        state, _ = init_train_state(cfg, mesh, dev, seed=0)
+        born = [p.detach().to_local().clone() for p in state.model.parameters()]
+        if family == "pipeline":
+            grad = make_grad_step(state, make_pipeline_loss(cfg, mesh, n_micro=2))
+
+            def step(state, b):
+                loss, _ = grad(b)
+                state.optimizer.step()
+                return state, {"loss": loss}
+
+            whole = lambda named: gather_stages(  # noqa: E731
+                {n: t.to_local() for n, t in named.items()}, mesh, cfg.num_layers
+            )
+        else:
+            step = make_train_step(state)
+            if axis == "sp":
+                whole = lambda named: {n: t.to_local().clone() for n, t in named.items()}  # noqa: E731
+            else:
+                whole = lambda named: {n: gather_full(t) for n, t in named.items()}  # noqa: E731
+
+        def run(batches, fault: bool = False):
+            with torch.no_grad():
+                for p, b in zip(state.model.parameters(), born):
+                    p.detach().to_local().copy_(b)
+            state.optimizer.state.clear()
+            if family == "dense" and fault:
+                # Each rank computes with the other rank's block of every
+                # wo's input columns.
+                with torch.no_grad():
+                    for block in state.model.layers.values():
+                        w = block.attn.wo.weight
+                        full, local = gather_full(w), w.to_local()
+                        n = local.shape[1]
+                        local.copy_(full[:, (1 - rank) * n:(2 - rank) * n])
+            losses, g1, p1 = [], None, None
+            for b in batches:
+                _, m = step(state, b)
+                losses.append(float(m["loss"]))
+                if g1 is None:
+                    named = list(state.model.named_parameters())
+                    g1 = whole({n: p.grad for n, p in named})
+                    p1 = whole({n: p.detach() for n, p in named})
+            return losses, g1, p1
+
+        return run
+
+    def reference(family: str, cfg, batches):
+        """The one-rank steps of the same seed (rank 0 only)."""
+        torch.manual_seed(0)
+        model = build_model(dataclasses.replace(
+            cfg, attn_impl="flash" if small else "dense"
+        ) if family in ("ring", "ulysses") else cfg).to(dev)
+        opt = default_optimizer(model.parameters())
+        loss_fn = None
+        if family == "pipeline":
+            one = make_mesh(devices=[dev])
+            loss_fn = make_pipeline_loss(cfg, one, n_micro=2)
+        losses, g1, p1 = [], None, None
+        for b in batches:
+            loss, grads = grad_step(model, b, loss_fn)
+            losses.append(float(loss))
+            if g1 is None:
+                g1 = {n: g.clone() for n, g in grads.items()}
+                opt.step()
+                p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return losses, g1, p1
+
     try:
-        for family, dtype, axis in TP_EP_CASES:
-            name = f"{family} {dtype} {axis}=2"
+        for family, dtype, axis in spec["cases"]:
+            name = case_name(family, dtype, axis)
             print(f"rank {rank}: {name}", flush=True)
-            base = dense if family == "dense" else llama_moe_debug()
-            cfg = dataclasses.replace(base, dtype=getattr(torch, dtype), remat=False)
-            b1, b2 = (batch(family, k, cfg.vocab_size) for k in (0, 1))
+            cfg = case_cfg(family, dtype)
+            shape = shapes["moe" if family == "moe" else "dense"]
+            b1, b2 = (batch(shape, k, cfg.vocab_size) for k in (0, 1))
             mesh = make_mesh(**{axis: 2}, devices=[dev] * 2)
             mesh.process_rank = rank
             for k in flash_attention.LAUNCHES:
                 flash_attention.LAUNCHES[k] = 0
             sync()
             t0 = time.perf_counter()
-            state, _ = init_train_state(cfg, mesh, dev, seed=0)
-            step = make_train_step(state)
-            state, m1 = step(state, b1)
+            run = case_runner(family, cfg, mesh, axis)
+            got, g1, p1 = run((b1, b2))
             sync()
             step_s = time.perf_counter() - t0
-            g1, p1 = gathered(state)
-            state, m2 = step(state, b2)
-            sync()
-            out["launches"][name] = {k: flash_attention.LAUNCHES[k] for k in FLASH_KERNELS}
-            got = (float(m1["loss"]), float(m2["loss"]))
-            del state, step
+            out["launches"][name] = {k: flash_attention.LAUNCHES[k] for k in kernels}
             fault = None
-            if family == "dense":
-                # The planted fault: each rank computes with the other
-                # rank's block of every wo's input columns.
-                state, _ = init_train_state(cfg, mesh, dev, seed=0)
-                with torch.no_grad():
-                    for block in state.model.layers:
-                        w = block.attn.wo.weight
-                        full, local = gather_full(w), w.to_local()
-                        n = local.shape[1]
-                        local.copy_(full[:, (1 - rank) * n:(2 - rank) * n])
-                state, m = make_train_step(state)(state, b1)
-                fault = (float(m["loss"]), gathered(state)[0])
-                del state
+            if family in PLANTED_FAULTS and (family == "dense" or dtype == "float32"):
+                undo = plant_fault(family, rank) if family != "dense" else (lambda: None)
+                try:
+                    fl, fg, _ = run((b1,), fault=True)
+                finally:
+                    undo()
+                fault = (fl[0], fg)
+            del run
             if rank == 0:
-                torch.manual_seed(0)
-                model = build_model(cfg).to(dev)
-                opt = default_optimizer(model.parameters())
-                l1, grads = grad_step(model, b1)
-                r_g1 = {n: g.clone() for n, g in grads.items()}
-                opt.step()
-                r_p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
-                l2, _ = grad_step(model, b2)
-                want = (float(l1), float(l2))
+                key = (
+                    "moe" if family == "moe"
+                    else "pipeline" if family == "pipeline" else "dense", dtype,
+                )
+                if key not in refs:
+                    refs[key] = reference(family, cfg, (b1, b2))
+                want, r_g1, r_p1 = refs[key]
                 out["diff"][name] = {
                     "loss": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
                     "grad": rel_diff(g1, r_g1),
@@ -3040,103 +3228,175 @@ def tp_ep_rank(spec: dict) -> None:
                     "fault_grad": None if fault is None else rel_diff(fault[1], r_g1),
                     "first_step_s": step_s,
                 }
-                out["loss"][name] = {"tp": got, "one": want}
-                del model, opt, grads, r_g1, r_p1
+                out["loss"][name] = {"ranks": got, "one": want}
             del g1, p1, fault
         (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float = 240.0) -> dict:
-    """Phase 21's check (on the CPU: its rehearsal at llama_debug's size):
-    the two ranks of :func:`tp_ep_rank` as processes of their own, then
-    each case's differences held to its bars: the loss (both steps) and the
-    first step's gradients in fp32 to ``TP_FP32``, bf16 to ``TP_BF16``;
-    every case's parameters after the first AdamW step to the bound of
-    ``adamw_excess``, every element; each dense case's planted fault must
-    exceed its loss and gradient bars; the MoE router's gradient must be nonzero and
-    the flash kernels must launch in both ranks of the llama_small cases.
-    Returns the cases' differences, bars, losses and launches."""
+def gloo_probe_rank(spec: dict) -> None:
+    """One rank of phase 21's probe pair (``spec``: rank, init, device,
+    out): joins a two-rank ``cpu:gloo,cuda:gloo`` world of its own and
+    writes :func:`gloo_answers` to ``out/gloo<r>.json``. A crash in the
+    probe leaves no file: that is its answer."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    rank, dev = spec["rank"], torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "cpu:gloo,cuda:gloo" if dev.type == "cuda" else "gloo",
+        init_method=spec["init"], rank=rank, world_size=2,
+        timeout=timedelta(seconds=30),
+    )
+    try:
+        answers = gloo_answers(dev)
+        (Path(spec["out"]) / f"gloo{rank}.json").write_text(json.dumps(answers))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float = 240.0,
+                cases=tuple(TP_EP_CASES)) -> dict:
+    """Phase 21's check (on the CPU: its rehearsal at llama_debug's size)
+    over ``cases``: the two ranks of :func:`tp_ep_rank` as processes of
+    their own, then each case's differences held to its bars: the loss
+    (both steps) and the first step's gradients in fp32 to ``TP_FP32``,
+    bf16 to ``TP_BF16``, the pipeline bit for bit (``PP_BARS``); every
+    case's parameters after the first AdamW step to the bound of
+    ``adamw_excess``, every element; each family's planted fault must
+    exceed its loss or gradient bar (the tp fault both); the MoE router's
+    gradient must be
+    nonzero; and on the card (llama_small), the flash kernels must launch
+    in both ranks of the dense cases at tp 2, Ulysses' and the pipeline's,
+    the block kernels in the default and ring cases at sp 2; both ranks
+    must exit 0. Returns the cases' differences, bars, losses and
+    launches, and the answers of the probe pair (:func:`gloo_probe_rank`,
+    run beside the cases; a probe rank that died leaves none: that is its
+    answer)."""
     import shutil
     import socket
     import tempfile
 
+    cases = [tuple(c) for c in cases]
     work = Path(tempfile.mkdtemp(prefix="tp_ep_", dir=REPO / "build"
                                  if (REPO / "build").is_dir() else None))
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    procs = []
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONUNBUFFERED": "1",
+           # A crash in native code prints its Python stack to the log.
+           "PYTHONFAULTHANDLER": "1",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)}
+
+    def start(target: str, name: str, spec: dict):
+        log = open(work / f"{name}.log", "w")
+        return subprocess.Popen(
+            [sys.executable, "-c",
+             f"import json, sys, chip_smoke; chip_smoke.{target}(json.loads(sys.argv[1]))",
+             json.dumps(spec)],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env,
+        ), log
+
+    def logs(prefix: str) -> str:
+        return "\n".join(f"{prefix}{i}: " + (work / f"{prefix}{i}.log").read_text()[-3000:]
+                         for i in (0, 1))
+
+    procs, probes = [], []
+    answers = {}
     try:
+        with socket.socket() as one, socket.socket() as two:
+            one.bind(("localhost", 0))
+            two.bind(("localhost", 0))
+            init, probe_init = [f"tcp://localhost:{sock.getsockname()[1]}"
+                                for sock in (one, two)]
         for rank in (0, 1):
-            spec = {"rank": rank, "init": f"tcp://localhost:{port}", "device": device,
-                    "model": model, "out": str(work)}
-            log = open(work / f"rank{rank}.log", "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c",
-                 "import json, sys, chip_smoke; chip_smoke.tp_ep_rank(json.loads(sys.argv[1]))",
-                 json.dumps(spec)],
-                cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                # A crash in native code prints its Python stack to the log.
-                env={**os.environ, "OMP_NUM_THREADS": "1", "PYTHONFAULTHANDLER": "1",
-                     "PYTHONUNBUFFERED": "1",
-                     "PYTHONPATH": os.pathsep.join(
-                         p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)},
-            ), log))
+            procs.append(start("tp_ep_rank", f"rank{rank}", {
+                "rank": rank, "init": init, "device": device, "model": model,
+                "out": str(work), "cases": cases,
+            }))
+        # The probe pair runs beside the cases, in a world of its own.
+        for rank in (0, 1):
+            probes.append(start("gloo_probe_rank", f"probe{rank}", {
+                "rank": rank, "init": probe_init, "device": device, "out": str(work),
+            }))
         deadline = time.monotonic() + timeout_s
-        for proc, _ in procs:
-            rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        for r, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 21: rank {r} still running after "
+                                     f"{timeout_s:g} s:\n" + logs("rank")) from None
             if rc != 0:
-                raise AssertionError(f"phase 21: a rank exited {rc}:\n" + "\n".join(
-                    f"rank {r}: " + (work / f"rank{r}.log").read_text()[-3000:]
-                    for r in (0, 1)))
+                raise AssertionError(f"phase 21: rank {r} exited {rc}:\n" + logs("rank"))
         ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in (0, 1)]
+        for r, (proc, _) in enumerate(probes):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            probe = work / f"gloo{r}.json"
+            if probe.exists():
+                answers[r] = json.loads(probe.read_text())
+            else:
+                said = [line for line in (work / f"probe{r}.log").read_text().splitlines()
+                        if re.search(r"terminate|what\(\)|enforce|Error|Fatal|Abort", line)]
+                answers[r] = {"died": f"probe rank {r} ended "
+                              f"({'still running' if rc is None else f'exit {rc}'}): "
+                              + " | ".join(said[-4:])[-600:]}
     finally:
-        for proc, log in procs:
+        for proc, log in procs + probes:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
         shutil.rmtree(work, ignore_errors=True)
-    result = {"cases": {}, "launches": {
+    result = {"cases": {}, "gloo": answers, "launches": {
         k: sum(r["launches"][n][k] for r in ranks for n in r["launches"])
-        for k in FLASH_KERNELS
+        for k in FLASH_KERNELS + BLOCK_KERNELS
     }}
+    print(f"gloo on {device} (a cpu:gloo,cuda:gloo world): " + json.dumps(answers), flush=True)
     failed = []
-    for family, dtype, axis in TP_EP_CASES:
-        name = f"{family} {dtype} {axis}=2"
+    for family, dtype, axis in cases:
+        name = case_name(family, dtype, axis)
         d = ranks[0]["diff"][name]
-        bar = TP_FP32 if dtype == "float32" else TP_BF16
+        bar = case_bars(family, dtype)
         launches = [r["launches"][name] for r in ranks]
         result["cases"][name] = {**d, "bar": bar, "launches": launches,
                                  "loss_pair": ranks[0]["loss"][name]}
-        print(f"tp/ep {name}: loss {d['loss']:.3g} (bar {bar['loss']:.3g}), worst "
+        print(f"{name}: loss {d['loss']:.3g} (bar {bar['loss']:.3g}), worst "
               f"gradient {d['grad']:.3g} of its leaf's largest (bar {bar['grad']:.3g})"
               + f", AdamW excess {d['adamw_excess']:.3g}"
-              + (f", planted fault: loss {d['fault_loss']:.3g}, gradient {d['fault_grad']:.3g}"
-                 if d["fault_grad"] is not None else "")
+              + (f", planted fault ({PLANTED_FAULTS[family]}): loss {d['fault_loss']:.3g}, "
+                 f"gradient {d['fault_grad']:.3g}" if d["fault_grad"] is not None else "")
               + (f", router gradient L1 {d['router_grad_l1']:.4g}" if family == "moe" else "")
-              + f"; losses {ranks[0]['loss'][name]}; launches per rank {launches}",
+              + f", first step {d['first_step_s']:.2f} s; losses {ranks[0]['loss'][name]}"
+              f"; launches per rank {launches}",
               flush=True)
         if d["loss"] > bar["loss"] or d["grad"] > bar["grad"]:
             failed.append(f"{name} past its bars: {d} vs {bar}")
         if d["adamw_excess"] > 0:
             failed.append(f"{name} parameters past the AdamW bound: {d}")
-        if d["fault_grad"] is not None and (
-            d["fault_loss"] <= bar["loss"] or d["fault_grad"] <= bar["grad"]
-        ):
-            failed.append(
-                f"{name}: the planted fault (wo's tp shards swapped) passes a "
-                f"bar (loss {d['fault_loss']:.3g}, gradient {d['fault_grad']:.3g}; "
-                f"bars {bar})"
-            )
+        if d["fault_grad"] is not None:
+            past = (d["fault_loss"] > bar["loss"], d["fault_grad"] > bar["grad"])
+            # The tp fault must fail both bars (PERF.md §6); the others
+            # must fail the case's check, which one bar past does.
+            if not (all(past) if family == "dense" else any(past)):
+                failed.append(
+                    f"{name}: the planted fault ({PLANTED_FAULTS[family]}) passes "
+                    f"the bars (loss {d['fault_loss']:.3g}, gradient "
+                    f"{d['fault_grad']:.3g}; bars {bar})"
+                )
+        if family in PLANTED_FAULTS and dtype == "float32" and d["fault_grad"] is None:
+            failed.append(f"{name}: no planted fault ran")
         if family == "moe" and not d["router_grad_l1"] > 0:
             failed.append(f"{name}: router gradient {d['router_grad_l1']}")
-        if family == "dense" and model == "small" and not all(
-            n > 0 for r in launches for n in r.values()
-        ):
-            failed.append(f"{name}: a flash kernel did not launch: {launches}")
+        if model == "small" and family != "moe":
+            want = BLOCK_KERNELS if family in ("default", "ring") else FLASH_KERNELS
+            if not all(r[k] > 0 for r in launches for k in want):
+                failed.append(f"{name}: a kernel of {want} did not launch: {launches}")
     if failed:
         raise AssertionError("phase 21: " + "; ".join(failed))
     return result
@@ -3144,18 +3404,18 @@ def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float =
 
 def tp_ep_phase() -> dict:
     """Phase 21 on the card: :func:`tp_ep_check` at llama_small's full
-    width; prints the wall time, which must stay under
-    ``TP_EP_BUDGET_S``."""
+    width over ``TP_EP_CASES`` and ``SP_PP_CASES`` in one world; prints the
+    wall time, which must stay under ``TP_EP_BUDGET_S``."""
     t0 = time.perf_counter()
-    result = tp_ep_check("cuda:0", "small")
+    result = tp_ep_check("cuda:0", "small", timeout_s=TP_EP_BUDGET_S + 60,
+                         cases=TP_EP_CASES + SP_PP_CASES)
     result["wall_s"] = time.perf_counter() - t0
     (OUT / "tp_ep.json").write_text(json.dumps(result, indent=1))
-    print(f"tp/ep ok in {result['wall_s']:.1f} s (budget {TP_EP_BUDGET_S:g} s); "
-          f"flash launches over both ranks {result['launches']}", flush=True)
+    print(f"tp/ep/sp/pp ok in {result['wall_s']:.1f} s (budget {TP_EP_BUDGET_S:g} s); "
+          f"flash and block launches over both ranks {result['launches']}", flush=True)
     if result["wall_s"] > TP_EP_BUDGET_S:
         raise AssertionError(f"phase 21 took {result['wall_s']:.1f} s")
     return result
-
 
 
 def main() -> int:
@@ -3296,9 +3556,16 @@ def main() -> int:
                     orchestration["results"][g]["kernel_launches"][name]
                     for g in (0, 1)
                 ),
-                # Phase 21's tp 2 steps, both ranks (6 q / 2 kv heads).
-                "tp_launches": tp_ep["launches"][name],
+                # Phase 21's steps, both ranks: tp 2 (6 q / 2 kv heads),
+                # Ulysses at sp 2 (6 q / 2 kv heads on the whole sequence)
+                # and the pipeline's stages at pp 2.
+                "tp_sp_pp_launches": tp_ep["launches"][name],
             }
+            launches += sum(more.values())
+            rec = {**rec, **more}
+        if name in BLOCK_KERNELS:
+            # Phase 21's default and ring attention at sp 2 (shards of 512).
+            more = {"sp_launches": tp_ep["launches"][name]}
             launches += sum(more.values())
             rec = {**rec, **more}
         kernels.append({

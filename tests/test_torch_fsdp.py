@@ -6,7 +6,9 @@ run the cases once per module; each rank starts from the parameters flax
 initialised, carried by ``params_from_jax``, on a batch made with numpy.
 JAX runs in this process on its virtual CPU devices at ``make_mesh(fsdp=2)``
 (``make_mesh(fsdp=2, sp=2)`` for ring and Ulysses, ``make_mesh(dp=2,
-pp=2)`` for GPipe). Bars: the loss to rtol 1e-5 and every gradient leaf to
+pp=2)`` for GPipe; the port runs them at sp 1 beside fsdp and GPipe over
+dp with one stage a rank, the same function: sp and pp across ranks are
+``tests/test_torch_sp_pp.py``'s). Bars: the loss to rtol 1e-5 and every gradient leaf to
 relative 1e-4 (``tests/test_torch_llama.py``); parameters after one AdamW
 step to the bound ``tests/test_torch_local_sgd.py`` derives for AdamW on
 cancelled gradients; ``accum_steps`` 2 and 4 against 1 to the JAX test's

@@ -9,9 +9,11 @@ one-rank groups: its losses and parameters' L1 within relative 1e-4 (the
 gradient-leaf bar; only the gradients' reduction order differs). The MoE
 and GPipe families run in such groups too, and a full-job preemption
 resumes every rank from its own snapshot. Groups of four ranks run the JAX
-trainer's auto_mesh(4), fsdp 2 x tp 2, through the same kill and heal, and
-the MoE model in groups of two runs at ep 2. Also the trainer's refusal of
-a group size whose factoring needs sp."""
+trainer's auto_mesh(4), fsdp 2 x tp 2, through the same kill and heal, the
+MoE model in groups of two runs at ep 2, and the pipeline in groups of two
+at pp 2 (its stages on the two ranks) ends equal to one-rank groups bit for
+bit. Also the trainer's refusal of an MoE group whose mesh needs both ep
+and tp."""
 
 import json
 import math
@@ -23,9 +25,9 @@ import numpy as np
 import pytest
 
 from torchft_tpu_torch.drill import kill_heal_drill, preempt_all_drill
-from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
 
 ARGS = ["--model", "debug", "--steps", "8", "--device", "cpu"]
+PIPELINE_ARGS = ["--model", "pipeline", "--steps", "8", "--device", "cpu"]
 
 
 def _drill(tmp_path, name, args, ranks, env=None):
@@ -61,6 +63,15 @@ def one_rank(tmp_path_factory):
     """The drill of one-rank groups, the reference of the drills of larger
     groups (run once for the module)."""
     one = _drill(tmp_path_factory.mktemp("fsdp1"), "fsdp1", ARGS, 1)
+    assert one[0]["param_sha256"] == one[1]["param_sha256"]
+    return one
+
+
+@pytest.fixture(scope="module")
+def one_rank_pipeline(tmp_path_factory):
+    """The pipeline's drill of one-rank groups (one stage a rank), the
+    reference of the pipeline's drills of larger groups."""
+    one = _drill(tmp_path_factory.mktemp("pp1"), "pp1", PIPELINE_ARGS, 1)
     assert one[0]["param_sha256"] == one[1]["param_sha256"]
     return one
 
@@ -107,9 +118,10 @@ def test_groups_of_two_ranks_kill_heal_pg_sharded_int8(tmp_path):
 def test_moe_and_pipeline_in_groups_of_two_ranks(tmp_path, model):
     """The MoE model at ep 2 (the JAX trainer's MoE mesh for two devices:
     each rank runs two of the four experts on the whole batch) and the
-    GPipe pipeline (each rank pipelining its rows) in groups of two ranks
-    on the int4 device-quantize path: the kill, the heal and equal
-    gathered state."""
+    GPipe pipeline at pp 2 (the JAX trainer's pipeline mesh for two
+    devices: each rank holds and runs one stage) in groups of two ranks on
+    the int4 device-quantize path: the kill, the heal and equal gathered
+    state."""
     results = _drill(
         tmp_path, model,
         ["--model", model, "--batch", "8", "--seq", "64", "--steps", "8",
@@ -117,7 +129,7 @@ def test_moe_and_pipeline_in_groups_of_two_ranks(tmp_path, model):
         env={"TORCHFT_FORCE_DEVICE_QUANT": "1"},
     )
     _assert_healed_and_equal(tmp_path, model, results, 2)
-    want = {"ep": 2} if model == "moe" else {"fsdp": 2}
+    want = {"ep": 2} if model == "moe" else {"pp": 2}
     for res in results.values():
         assert {a: n for a, n in res["mesh"].items() if n > 1} == want
     if model == "moe":
@@ -147,15 +159,41 @@ def test_groups_of_two_ranks_resume_from_per_rank_snapshots(tmp_path):
     assert out["resume"][0]["opt_sha256"] == out["resume"][1]["opt_sha256"]
 
 
+@pytest.mark.timeout(300)
+def test_pipeline_in_groups_of_two_ranks_kill_heal_equal_one_rank_bit_for_bit(
+    tmp_path, one_rank_pipeline
+):
+    """Two groups of two ranks at pp 2 (``--model pipeline``, fp32
+    gradients, the pg-sharded heal: each rank's stage and the replicated
+    leaves, leaf by leaf): group 1 killed after step 3 and each rank healed
+    from the same rank (the same stage) of group 0; every rank of both
+    groups ends with equal gathered parameters and AdamW state, and equal
+    bit for bit to one-rank groups: each stage runs the one rank's
+    arithmetic, and the sums over pp add zeros."""
+    two = _drill(tmp_path, "pp2", [*PIPELINE_ARGS, "--ckpt-transport", "pg-sharded"], 2)
+    _assert_healed_and_equal(tmp_path, "pp2", two, 2)
+    for res in two.values():
+        assert {a: n for a, n in res["mesh"].items() if n > 1} == {"pp": 2}
+        assert res["ckpt_transport"] == "pg-sharded"
+    one = one_rank_pipeline
+    assert two[0]["param_sha256"] == one[0]["param_sha256"]
+    assert two[0]["opt_sha256"] == one[0]["opt_sha256"]
+    assert two[0]["losses"] == one[0]["losses"]
+
+
 @pytest.mark.timeout(120)
 def test_trainer_refuses_a_group_whose_factoring_needs_tp(tmp_path):
-    """8 ranks factor as fsdp 2 x tp 2 x sp 2: the trainer raises naming the
-    ROADMAP item (sp across ranks) before any rendezvous or quorum."""
+    """``--model moe`` at 8 ranks would place the experts over ep 2 and
+    tp 2: the trainer raises its named error before any rendezvous or
+    quorum. (8 dense ranks are the JAX trainer's fsdp 2 x tp 2 x sp 2.)"""
     proc = subprocess.run(
-        [sys.executable, "-m", "torchft_tpu_torch.train_hsdp", "--device", "cpu"],
+        [sys.executable, "-m", "torchft_tpu_torch.train_hsdp", "--device", "cpu",
+         "--model", "moe"],
         env={"RANK": "0", "WORLD_SIZE": "8",
              "PYTHONPATH": str(Path(__file__).resolve().parents[1])},
         capture_output=True, text=True, timeout=100,
     )
     assert proc.returncode != 0
-    assert SP_PP_ITEM in proc.stderr, proc.stderr[-2000:]
+    assert "NotImplementedError" in proc.stderr, proc.stderr[-2000:]
+    assert "experts placed over both ep and tp" in proc.stderr, proc.stderr[-2000:]
+    assert "GROUP_INIT_METHOD" not in proc.stderr, proc.stderr[-2000:]

@@ -1,21 +1,23 @@
-"""The rank side of ``tests/test_torch_fsdp.py`` and
-``tests/test_torch_tp_ep.py``: one process of a gloo world, run as ``python
-tests/test_torch_fsdp_worker.py OUT_DIR [fsdp|tp_ep]`` with ``RANK``,
-``WORLD_SIZE`` and ``GROUP_INIT_METHOD`` set (:func:`run_world` starts
-them). JAX-free: ``tests/conftest.py`` imports JAX, so the ranks run
-this file as a script, read their inputs from ``OUT_DIR/inputs.npz``
-(parameters made by flax and carried by ``params_from_jax``, tokens made
-with numpy) and write what they computed to
-``OUT_DIR/world<n>_rank<r>.npz``, which the pytest process holds against
-the JAX package.
+"""The rank side of ``tests/test_torch_fsdp.py``,
+``tests/test_torch_tp_ep.py`` and ``tests/test_torch_sp_pp.py``: one
+process of a gloo world, run as ``python tests/test_torch_fsdp_worker.py
+OUT_DIR [fsdp|tp_ep|sp_pp]`` with ``RANK``, ``WORLD_SIZE`` and
+``GROUP_INIT_METHOD`` set (:func:`run_world` starts them). JAX-free:
+``tests/conftest.py`` imports JAX, so the ranks run this file as a script,
+read their inputs from ``OUT_DIR/inputs.npz`` (parameters made by flax and
+carried by ``params_from_jax``, tokens made with numpy) and write what
+they computed to ``OUT_DIR/world<n>_rank<r>.npz``, which the pytest
+process holds against the JAX package.
 
-Every case runs the port's sharded step at the world's fsdp size on the
-CPU in fp32: gradients, train steps at ``accum_steps`` 1, 2 and 4, the
-eval step, the MoE model, block recompute, ring and Ulysses attention at
-sp=2 in-process, the GPipe pipeline over ``dp`` (a process axis) and pp=2,
-the optimizer state's round trip and the sharded heal's keys. The
-``tp_ep`` cases run the group's meshes with tensor and expert parallelism
-(:func:`_tp_ep_cases`)."""
+Every case runs the port's sharded step on the CPU in fp32. The ``fsdp``
+cases run at the world's fsdp size: gradients, train steps at
+``accum_steps`` 1, 2 and 4, the eval step, the MoE model, block recompute,
+ring and Ulysses attention at sp 1, the GPipe pipeline over ``dp`` (one
+stage a rank), the optimizer state's round trip and the sharded heal's
+keys. The ``tp_ep`` cases run the group's meshes with tensor and expert
+parallelism and the pipeline at pp 2 x dp 2 (:func:`_tp_ep_cases`), the
+``sp_pp`` cases sequence and pipeline parallelism across the ranks
+(:func:`_sp_pp_cases`)."""
 
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ def run_world(
     world: int, out_dir: Path, timeout_s: float = 240.0, cases: str = "fsdp"
 ) -> None:
     """Runs ``world`` ranks of this file over ``out_dir`` with ``cases``
-    (``fsdp`` or ``tp_ep``) and waits for them; raises with the ranks'
-    output if one fails."""
+    (``fsdp``, ``tp_ep`` or ``sp_pp``) and waits for them; raises with the
+    ranks' output if one fails."""
     store = out_dir / f"world{world}.store"
     store.unlink(missing_ok=True)
     repo = Path(__file__).resolve().parent.parent
@@ -273,22 +275,118 @@ def _cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
     except ValueError:
         out["heal/mismatch_raises"] = np.array(True)
 
-    # The MoE model, block recompute, ring and Ulysses at sp=2 in-process.
+    # The MoE model, block recompute, and ring and Ulysses at the group's
+    # fsdp mesh (sp 1: each rank's ring folds its one block; the ring and
+    # Ulysses across sp ranks are the sp_pp cases).
     grads_case("moe", llama_moe_debug(**f32), _params(inputs, "moe/"))
     grads_case("remat", llama_debug(remat=True, **f32), params)
     for attn in ("ring", "ulysses"):
-        mesh = make_mesh(fsdp=world, sp=2, devices=[cpu] * (2 * world))
-        mesh.process_rank = rank
-        grads_case(attn, llama_debug(attn_impl=attn, **f32), params, mesh)
+        grads_case(attn, llama_debug(attn_impl=attn, **f32), params)
 
-    # GPipe: dp is the process axis, pp=2 in-process, 2 microbatches.
+    # GPipe over dp (each rank pipelines its rows), one stage a rank, 2
+    # microbatches.
     pcfg = llama_debug(num_layers=4, **f32)
-    mesh = make_mesh(dp=world, pp=2, devices=[cpu] * (2 * world))
+    mesh = make_mesh(dp=world, devices=[cpu] * world)
     mesh.process_rank = rank
     grads_case(
         "pipeline", pcfg, _params(inputs, "pipe/"), mesh,
         make_pipeline_loss(pcfg, mesh, n_micro=2),
     )
+    return out
+
+
+def _sp_pp_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Sequence and pipeline parallelism across the ranks: at world 2
+    llama_debug at ``make_mesh(sp=2)`` with the default attention (k and
+    v gathered), ring and Ulysses (gradients; the default also one train
+    step), the 4-layer llama_debug at ``make_mesh(pp=2)`` (gradients and
+    one AdamW step, 2 microbatches) and the heal's keys over sp and pp; at
+    world 8 llama_debug at ``auto_mesh(8)``, fsdp 2 x tp 2 x sp 2, with the
+    default attention, ring and Ulysses (gradients)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from torchft_tpu_torch.checkpointing.sharded import split_state_sharded
+    from torchft_tpu_torch.models import llama_debug
+    from torchft_tpu_torch.parallel import (
+        init_train_state,
+        make_mesh,
+        make_pipeline_loss,
+        make_train_step,
+    )
+    from torchft_tpu_torch.parallel.mesh import group_mesh
+    from torchft_tpu_torch.parallel.train import make_grad_step
+
+    cpu = torch.device("cpu")
+    out: Dict[str, np.ndarray] = {}
+    batch = _batch(inputs)
+    f32 = dict(dtype=torch.float32)
+    params = _params(inputs, "p/")
+
+    def state_of(cfg, params, mesh):
+        state, _ = init_train_state(cfg, mesh, cpu, seed=0)
+        _load_full(state.model, params)
+        return state
+
+    def record(tag, state, loss, grads):
+        out[f"{tag}/loss"] = np.asarray(float(loss))
+        out[f"{tag}/mesh"] = np.array(repr(state.mesh.shape))
+        for name, g in grads.items():
+            out[f"{tag}/grad/{name}"] = _full(g)
+
+    if world == 8:
+        mesh = group_mesh(world, rank, cpu)
+        for attn in ("dense", "ring", "ulysses"):
+            state = state_of(llama_debug(attn_impl=attn, **f32), params, mesh)
+            record(f"sp/{attn}", state, *make_grad_step(state)(batch))
+        # A [8, 16] leaf over fsdp (dim 0) and tp (dim 1), replicated over
+        # sp (the DeviceMesh's dp dim): the heal's keys.
+        c = mesh.process_coordinate()
+        full = torch.arange(128, dtype=torch.float32).reshape(8, 16)
+        leaf = DTensor.from_local(
+            full.chunk(2, 0)[c["fsdp"]].chunk(2, 1)[c["tp"]].clone(),
+            state.device_mesh, (Replicate(), Shard(0), Shard(1)),
+        )
+        out["heal/keys"] = np.array(repr(split_state_sharded({"w": leaf})[0]["w"].keys))
+        return out
+
+    mesh = make_mesh(sp=2, devices=[cpu] * 2)
+    mesh.process_rank = rank
+    for attn in ("dense", "ring", "ulysses"):
+        state = state_of(llama_debug(attn_impl=attn, **f32), params, mesh)
+        record(f"sp/{attn}", state, *make_grad_step(state)(batch))
+    state = state_of(llama_debug(**f32), params, mesh)
+    state, metrics = make_train_step(state)(state, batch)
+    out["sp_train/loss"] = metrics["loss"].numpy()
+    out["sp_train/grad_norm"] = metrics["grad_norm"].numpy()
+    for name, p in state.model.named_parameters():
+        out[f"sp_train/param/{name}"] = _full(p)
+        out[f"sp_train/grad/{name}"] = _full(p.grad)
+    # A leaf replicated over sp (the DeviceMesh's dp and fsdp dims): each
+    # rank's one shard is the whole leaf.
+    leaf = DTensor.from_local(
+        torch.zeros(8, 16), state.device_mesh, (Replicate(), Replicate())
+    )
+    out["heal/sp_keys"] = np.array(repr(split_state_sharded({"w": leaf})[0]["w"].keys))
+
+    pcfg = llama_debug(num_layers=4, **f32)
+    mesh = group_mesh(world, rank, cpu, "pipeline")
+    state = state_of(pcfg, _params(inputs, "pipe/"), mesh)
+    loss, grads = make_grad_step(state, make_pipeline_loss(pcfg, mesh, n_micro=2))(batch)
+    record("pp", state, loss, grads)
+    state.optimizer.step()
+    for name, p in state.model.named_parameters():
+        out[f"pp_train/param/{name}"] = _full(p)
+    # The heal's keys of this stage's state: every leaf whole, one layer a
+    # leaf, the stage's layers only.
+    meta, _ = split_state_sharded(dict(state.model.named_parameters()))
+    out["heal/pp_layers"] = np.array(sorted({
+        int(n.split(".")[1]) for n in meta if n.startswith("layers.")
+    }))
+    out["heal/pp_whole"] = np.array(all(
+        ref.keys == [tuple(("s", None, None, None) for _ in ref.global_shape)]
+        for ref in meta.values()
+    ))
     return out
 
 
@@ -344,18 +442,46 @@ def _tp_ep_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
         for name, p in born.model.named_parameters()
     ))
     out["tp_split"] = np.array(
-        born.model.layers[0].attn.wq.weight.to_local().shape
+        born.model.layers["0"].attn.wq.weight.to_local().shape
         == (dense.num_heads * dense.head_dim // 2, dense.hidden_size // 2)
     )
 
     # TORCHFT_PERF's count of one grad step on this rank's rows and shards,
     # on a fresh state, as the trainer counts it.
+    from torchft_tpu_torch import perf
     from torchft_tpu_torch.perf import count_step_flops
 
     state = state_of(dense, params)
     out["perf/flops"] = np.array(count_step_flops(
         make_grad_step(state), batch, preserve=(state.model, state.optimizer)
     )["flops"])
+    # The count after an eval step: a forward without gradients leaves
+    # FSDP2's root unsharded, and the count must snapshot and restore the
+    # sharded parameters. Every parameter and AdamW leaf (after one step,
+    # so the moments exist) is as it was before, bit for bit.
+    state = state_of(dense, params)
+    state, _ = make_train_step(state)(state, batch)
+
+    def leaves(state):
+        out = []
+        for p in state.model.parameters():
+            out.append(p.detach().to_local().clone())
+            for _, v in sorted(state.optimizer.state[p].items()):
+                out.append((v.to_local() if v.dim() else v).clone())
+        return out
+
+    before = leaves(state)
+    make_eval_step(state)(state, batch)
+    rec = perf.record_step_cost(
+        "after_eval", make_grad_step(state), batch, force=True,
+        preserve=(state.model, state.optimizer),
+    )
+    after = leaves(state)
+    out["perf/after_eval"] = np.array(
+        rec is not None and rec["flops"] > 0 and len(after) == len(before)
+        and all(torch.equal(a, b) for a, b in zip(after, before))
+    )
+
     state = grads_case("grad", dense, params)
     out["eval/loss"] = make_eval_step(state)(state, batch).numpy()
     with torch.no_grad():  # the full logits: the head's vocab blocks gathered
@@ -413,6 +539,21 @@ def _tp_ep_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
         torch.equal(built.full_tensor(), full) and built.placements == leaf.placements
         and built.to_local().data_ptr() != leaf.to_local().data_ptr()
     )
+
+    # The JAX trainer's pipeline mesh for four devices, pp 2 x dp 2: the
+    # 4-layer llama_debug in 2 microbatches, each dp rank its rows, each pp
+    # rank its stage.
+    from torchft_tpu_torch.parallel import make_pipeline_loss
+
+    pcfg = llama_debug(num_layers=4, **f32)
+    pmesh = group_mesh(world, rank, cpu, "pipeline")
+    state, _ = init_train_state(pcfg, pmesh, cpu, seed=0)
+    _load_full(state.model, _params(inputs, "pipe/"))
+    loss, grads = make_grad_step(state, make_pipeline_loss(pcfg, pmesh, n_micro=2))(batch)
+    out["pipeline/loss"] = loss.numpy()
+    out["pipeline/mesh"] = np.array(repr(pmesh.shape))
+    for name, g in grads.items():
+        out[f"pipeline/grad/{name}"] = _full(g)
     return out
 
 
@@ -425,7 +566,9 @@ def main(out_dir: str, cases: str = "fsdp") -> None:
     torch.set_num_threads(1)
     rank, world = init_group(torch.device("cpu"))
     inputs = np.load(os.path.join(out_dir, "inputs.npz"))
-    out = (_tp_ep_cases if cases == "tp_ep" else _cases)(inputs, rank, world)
+    out = {"tp_ep": _tp_ep_cases, "sp_pp": _sp_pp_cases, "fsdp": _cases}[cases](
+        inputs, rank, world
+    )
     np.savez(os.path.join(out_dir, f"world{world}_rank{rank}.npz"), **out)
     dist.destroy_process_group()
 

@@ -190,4 +190,4 @@ def test_unported_options_raise():
         Transformer(llama_debug(attn_impl="paged"))
     with pytest.raises(ValueError, match=r"num_experts_per_tok \(4\) > num_experts \(2\)"):
         Transformer(llama_debug(num_experts=2, num_experts_per_tok=4))
-    assert Transformer(llama_debug(num_experts=4)).layers[0].mlp.experts_up.shape == (4, 64, 128)
+    assert Transformer(llama_debug(num_experts=4)).layers["0"].mlp.experts_up.shape == (4, 64, 128)

@@ -215,18 +215,14 @@ def test_flash_fold_autoselect_matches_jax():
 
 
 def test_ring_refuses_sharded_batch_or_heads():
-    """dp and fsdp are process axes: a mesh with fsdp=2 runs the ring over
-    the rows this rank holds, as the sp=2 mesh alone does. sp beside tp
-    across ranks still raises, under the sequence-parallelism item."""
+    """A mesh one process holds whole with fsdp=2, or with tp=2 beside
+    sp=2, runs the ring over the rows and heads it is given (this rank's
+    rows, this rank's tp heads), as the sp=2 mesh alone does."""
     q, k, v = (torch.from_numpy(a) for a in _arrays((2, 64, 2, 8), (2, 64, 1, 8), (2, 64, 1, 8)))
-    sharded = make_ring_attention(make_mesh(fsdp=2, sp=2, devices=[CPU] * 4))
     alone = make_ring_attention(make_mesh(sp=2, devices=[CPU] * 2))
-    assert torch.equal(sharded(q, k, v), alone(q, k, v))
-    with pytest.raises(
-        NotImplementedError,
-        match="ROADMAP.md queue 1: sequence and pipeline parallelism across ranks",
-    ):
-        make_ring_attention(make_mesh(sp=2, tp=2, devices=[CPU] * 4))
+    for axes in (dict(fsdp=2), dict(tp=2)):
+        sharded = make_ring_attention(make_mesh(sp=2, **axes, devices=[CPU] * 4))
+        assert torch.equal(sharded(q, k, v), alone(q, k, v)), axes
 
 
 @pytest.mark.parametrize("n", range(1, 9))

@@ -2,8 +2,9 @@
 parameter's spec (the ``tp`` and ``ep`` entries included) for the dense and
 the MoE llama_debug, mapped through the layout (``nn.Linear`` weights are
 ``[out, in]``, each layer its own module); the multislice device layout; the
-batch rows each rank of (dp, fsdp) holds; the AdamW state's specs; the
-group mesh's factoring and its refusals; the process-axis coordinates."""
+batch block (rows over (dp, fsdp), sequence over sp) each rank holds; the
+AdamW state's specs; the group mesh's factoring and its refusal; the
+process-axis coordinates."""
 
 import numpy as np
 import pytest
@@ -39,7 +40,6 @@ from torchft_tpu_torch.parallel import (
 )
 from torchft_tpu_torch.parallel.mesh import group_mesh
 from torchft_tpu_torch.parallel.sharding import (
-    SP_PP_ITEM,
     param_placements,
     tp_plan,
     tree_specs_like,
@@ -143,33 +143,40 @@ def test_batch_rows_match_jax(dp, fsdp):
     tmesh = make_mesh(dp=dp, fsdp=fsdp, devices=[CPU] * (dp * fsdp))
     for i in range(dp):
         for j in range(fsdp):
-            want = index[jmesh.devices[i, 0, j, 0, 0, 0]][0]
-            got = batch_sharding(tmesh, i * fsdp + j, 8)
-            assert (got.start, got.stop) == (want.start, want.stop), (i, j)
+            want = index[jmesh.devices[i, 0, j, 0, 0, 0]]
+            got = batch_sharding(tmesh, i * fsdp + j, (8, 16))
+            assert [s.indices(n)[:2] for s, n in zip(got, (8, 16))] == [
+                s.indices(n)[:2] for s, n in zip(want, (8, 16))
+            ], (i, j)
     with pytest.raises(ValueError, match="not divisible"):
-        batch_sharding(tmesh, 0, 7)
+        batch_sharding(tmesh, 0, (7, 16))
 
 
 @pytest.mark.parametrize("world", [1, 2, 3])
 def test_group_mesh_factors_as_jax_auto_mesh(world):
     mesh = group_mesh(world, world - 1, CPU)
     assert mesh.shape["fsdp"] == world and mesh.process_rank == world - 1
-    assert mesh.process_coordinate() == {"dp": 0, "fsdp": world - 1, "ep": 0, "tp": 0}
+    assert mesh.process_coordinate() == {
+        "dp": 0, "pp": 0, "fsdp": world - 1, "ep": 0, "sp": 0, "tp": 0,
+    }
 
 
 @pytest.mark.parametrize("world", [4, 8])
 def test_group_sizes_that_need_tp_or_sp_raise(world):
-    """4 ranks take the JAX trainer's auto_mesh(4), fsdp 2 x tp 2, with tp
-    a process axis (rank 3 sits at fsdp 1, tp 1); 8 factor as fsdp 2 x tp 2
-    x sp 2 and raise: sp across ranks is not ported."""
-    if world == 8:
-        with pytest.raises(NotImplementedError, match=SP_PP_ITEM):
-            group_mesh(world, 0, CPU)
-        return
-    mesh = group_mesh(world, 3, CPU)
-    want = {a: n for a, n in jax_auto_mesh(4).shape.items()}
+    """No dense group size raises now: 4 ranks take the JAX trainer's
+    auto_mesh(4), fsdp 2 x tp 2 (rank 3 sits at fsdp 1, tp 1), and 8 its
+    auto_mesh(8), fsdp 2 x tp 2 x sp 2 (rank 7 at fsdp 1, sp 1, tp 1; rank
+    5 at fsdp 1, sp 0, tp 1), every axis a process axis, a rank's
+    coordinate row-major over them."""
+    mesh = group_mesh(world, world - 1, CPU)
+    want = {a: n for a, n in jax_auto_mesh(world).shape.items()}
     assert mesh.shape == want and want["fsdp"] == want["tp"] == 2
-    assert mesh.process_coordinate() == {"dp": 0, "fsdp": 1, "ep": 0, "tp": 1}
+    assert want["sp"] == (2 if world == 8 else 1)
+    last = {"dp": 0, "pp": 0, "fsdp": 1, "ep": 0, "sp": want["sp"] - 1, "tp": 1}
+    assert mesh.process_coordinate() == last
+    if world == 8:
+        mesh.process_rank = 5
+        assert mesh.process_coordinate() == {**last, "sp": 0}
 
 
 @pytest.mark.parametrize("world,want", [
@@ -190,18 +197,19 @@ def test_group_mesh_of_the_moe_model_is_the_jax_trainers(world, want):
     assert {a: n for a, n in mesh.shape.items() if n > 1} == want
 
 
-@pytest.mark.parametrize("world,want", [(1, {}), (2, {"fsdp": 2}), (4, None)])
+@pytest.mark.parametrize("world,want", [(1, {}), (2, {"pp": 2}), (4, {"dp": 2, "pp": 2})])
 def test_group_mesh_of_the_pipeline_model(world, want):
-    """``--model pipeline`` runs its stages in-process over auto_mesh's
-    fsdp (2 ranks: fsdp 2). At 4 ranks auto_mesh needs tp, and the JAX
-    trainer puts the stages on other ranks (make_mesh(pp=2, dp=2)): pp
-    across ranks is not ported, and it raises naming the item."""
-    if want is None:
-        with pytest.raises(NotImplementedError, match=SP_PP_ITEM):
-            group_mesh(world, 0, CPU, "pipeline")
-        return
+    """``--model pipeline`` puts its GPipe stages on other ranks on an even
+    world, as the JAX trainer does (make_mesh(pp=2, dp=n/2)): 2 ranks are
+    pp 2, 4 are pp 2 x dp 2 (rank 3 at dp 1, pp 1); one rank holds the
+    whole pipeline."""
     mesh = group_mesh(world, world - 1, CPU, "pipeline")
     assert {a: n for a, n in mesh.shape.items() if n > 1} == want
+    if world > 1:
+        jmesh = jax_make_mesh(**want)
+        assert mesh.shape == dict(jmesh.shape)
+        assert mesh.process_coordinate()["pp"] == 1
+        assert mesh.process_coordinate()["dp"] == world // 2 - 1
 
 
 class _DeviceMesh:
@@ -257,9 +265,34 @@ def test_batch_rows_over_ep_and_tp_match_jax(fsdp, ep, tp):
     index = jax_batch_sharding(jmesh).devices_indices_map((8, 16))
     tmesh = make_mesh(fsdp=fsdp, ep=ep, tp=tp, devices=[CPU] * (fsdp * ep * tp))
     for rank, coord in enumerate(np.ndindex(fsdp, ep, tp)):
-        want = index[jmesh.devices[0, 0, coord[0], coord[1], 0, coord[2]]][0]
-        got = batch_sharding(tmesh, rank, 8)
-        assert (got.start, got.stop) == want.indices(8)[:2], coord
+        want = index[jmesh.devices[0, 0, coord[0], coord[1], 0, coord[2]]]
+        got = batch_sharding(tmesh, rank, (8, 16))
+        assert [s.indices(n)[:2] for s, n in zip(got, (8, 16))] == [
+            s.indices(n)[:2] for s, n in zip(want, (8, 16))
+        ], coord
+
+
+@pytest.mark.parametrize("axes", [
+    dict(sp=2), dict(fsdp=2, tp=2, sp=2), dict(pp=2, dp=2), dict(dp=2, sp=4),
+], ids=["sp2", "fsdp2xtp2xsp2", "pp2xdp2", "dp2xsp4"])
+def test_batch_blocks_over_sp_and_pp_match_jax(axes):
+    """Every rank's block, rows over (dp, fsdp) and sequence over sp, is
+    the one JAX's batch sharding gives the device at its coordinate
+    (row-major over every axis); the ranks that differ only in pp take the
+    same block."""
+    jmesh = jax_make_mesh(**axes)
+    index = jax_batch_sharding(jmesh).devices_indices_map((8, 16))
+    n = int(np.prod(list(axes.values())))
+    tmesh = make_mesh(**axes, devices=[CPU] * n)
+    for rank, coord in enumerate(np.ndindex(*jmesh.devices.shape)):
+        want = index[jmesh.devices[coord]]
+        got = batch_sharding(tmesh, rank, (8, 16))
+        assert [s.indices(m)[:2] for s, m in zip(got, (8, 16))] == [
+            s.indices(m)[:2] for s, m in zip(want, (8, 16))
+        ], coord
+    if tmesh.shape["sp"] > 1:
+        with pytest.raises(ValueError, match="sequence 15 not divisible"):
+            batch_sharding(tmesh, 0, (8, 15))
 
 
 class _FakeManager:
@@ -271,18 +304,21 @@ class _FakeManager:
 
 
 def test_process_axes_take_the_rank_as_coordinate():
-    """Each rank of a group names its own device at every process-axis
-    coordinate: the coordinate comes from its rank, and the in-process
-    axes from where the device sits."""
+    """Each rank of a group names its own device at its coordinate, which
+    comes from its rank, row-major over every axis (sp a process axis too:
+    rank 3 of fsdp 2 x sp 2 sits at fsdp 1, sp 1); another device is not
+    this process's and raises."""
     mesh = make_mesh(fsdp=2, sp=2, devices=[torch.device("cpu", i % 2) for i in range(4)])
-    mesh.process_rank = 1
+    mesh.process_rank = 3
     mm = tdm.ManagedMesh(_FakeManager(), mesh)
     assert mm.device_coordinate(torch.device("cpu", 1)) == {
         "dp": 0, "pp": 0, "fsdp": 1, "ep": 0, "sp": 1, "tp": 0,
     }
     view = mm[("replica", "fsdp")]
-    assert view.rank(torch.device("cpu", 0)) == 1 * 2 + 1
+    assert view.rank(torch.device("cpu", 1)) == 1 * 2 + 1
     assert view.partition_spec() == ("fsdp",)
+    with pytest.raises(ValueError, match="not this process's device"):
+        mm.device_coordinate(torch.device("cpu", 0))
     # tp and ep are process axes too: rank 3 of fsdp 2 x tp 2 sits at
     # fsdp 1, tp 1; rank 1 of ep 2 at ep 1.
     for shape, rank, want in ((dict(fsdp=2, tp=2), 3, {"fsdp": 1, "tp": 1}),

@@ -4,8 +4,10 @@ CPU at llama_debug size in fp32.
 
 Two gloo worlds of ``tests/test_torch_fsdp_worker.py`` (its ``tp_ep``
 cases) run once per module: world 4 is llama_debug at fsdp 2 x tp 2 (the
-JAX trainer's ``auto_mesh(4)``) and llama_moe_debug at fsdp 2 x ep 2, world
-2 is llama_moe_debug at ep 2 (the JAX trainer's MoE meshes for 4 and 2
+JAX trainer's ``auto_mesh(4)``), llama_moe_debug at fsdp 2 x ep 2 and the
+4-layer llama_debug's pipeline at pp 2 x dp 2 (the JAX trainer's
+``make_mesh(pp=2, dp=2)`` for ``--model pipeline``), world 2 is
+llama_moe_debug at ep 2 (the JAX trainer's MoE meshes for 4 and 2
 devices). Each rank starts from the parameters flax initialised, carried
 by ``params_from_jax``, on a batch made with numpy; JAX runs in this process
 on its virtual CPU devices at the same meshes. Bars, those of
@@ -28,6 +30,7 @@ from torchft_tpu.models.llama import llama_debug as jax_llama_debug
 from torchft_tpu.models.llama import llama_moe_debug as jax_llama_moe_debug
 from torchft_tpu.parallel import make_mesh as jax_make_mesh
 from torchft_tpu.parallel import train as jtrain
+from torchft_tpu.parallel.pipeline import make_pipeline_loss as jax_pipeline_loss
 from torchft_tpu_torch.models.llama import Transformer, llama_debug, params_from_jax
 
 B, S = 8, 64
@@ -63,8 +66,16 @@ def _runs(out):
     moe_params = _host(jtrain.init_train_state(
         jtrain.build_model(moe_cfg, mesh), mesh, jax.random.PRNGKey(1), (B, S)
     )[0].params)
+    pipe_cfg = jax_llama_debug(num_layers=4, **f32)
+    pipe_params = _host(jtrain.init_train_state(
+        jtrain.build_model(pipe_cfg, mesh), mesh, jax.random.PRNGKey(2), (B, S)
+    )[0].params)
 
     ref = {4: {}, 2: {}}
+    loss, grads = jax.jit(jax.value_and_grad(
+        jax_pipeline_loss(pipe_cfg, jax_make_mesh(pp=2, dp=2), n_micro=2)
+    ))(pipe_params, _jbatch(batch))
+    ref[4]["pipeline"] = (float(loss), _host(grads))
     for world, cases in MESHES.items():
         for case, axes in cases.items():
             c, p = (moe_cfg, moe_params) if case == "moe" else (cfg, params)
@@ -96,7 +107,7 @@ def _runs(out):
         )
 
     inputs = {"tokens": batch["inputs"], "targets": batch["targets"], "mask": batch["mask"]}
-    for prefix, p in (("p/", params), ("moe/", moe_params)):
+    for prefix, p in (("p/", params), ("moe/", moe_params), ("pipe/", pipe_params)):
         inputs.update({prefix + k: v.numpy() for k, v in params_from_jax(p).items()})
     np.savez(out / "inputs.npz", **inputs)
     result = {"jax": ref}
@@ -130,6 +141,34 @@ def test_grad_step_matches_jax_at_the_same_mesh(runs, world, case):
     if case == "moe":
         routers = [k for k in runs[world][0] if k.startswith("moe/grad/") and "router" in k]
         assert routers and all(np.abs(runs[world][0][k]).sum() > 0 for k in routers)
+
+
+@pytest.mark.timeout(300)
+def test_pipeline_at_pp2_dp2_matches_jax(runs):
+    """The 4-layer llama_debug at the JAX trainer's pipeline mesh for four
+    ranks, pp 2 x dp 2: every rank's loss, and each dp rank's two stages'
+    gradients merged (the embedding, norm and head summed over pp, equal on
+    both stages) to every JAX gradient leaf."""
+    ref_loss, ref_grads = runs["jax"][4]["pipeline"]
+    tcfg = llama_debug(num_layers=4, dtype=torch.float32)
+    ranks = runs[4]
+    for r, res in ranks.items():
+        shape = eval(str(res["pipeline/mesh"]))  # noqa: S307 - our own repr
+        assert {a: n for a, n in shape.items() if n > 1} == {"dp": 2, "pp": 2}
+        np.testing.assert_allclose(float(res["pipeline/loss"]), ref_loss, rtol=1e-5)
+    ref = jax.tree_util.tree_leaves_with_path(ref_grads)
+    for dp in (0, 1):  # rank = dp * 2 + pp
+        merged = {}
+        for r in (2 * dp, 2 * dp + 1):
+            for k, v in ranks[r].items():
+                if k.startswith("pipeline/grad/"):
+                    if k in merged:
+                        np.testing.assert_array_equal(v, merged[k], err_msg=k)
+                    merged[k] = v
+        got = _port_tree(merged, "pipeline/grad/", tcfg)
+        assert len(got) == len(ref)
+        for path, leaf in ref:
+            assert _rel(got[path], leaf) < 1e-4, (dp, jax.tree_util.keystr(path))
 
 
 @pytest.mark.timeout(300)
@@ -175,6 +214,16 @@ def test_counted_flops_at_fsdp2_tp2_within_10pct_of_the_analytic_share(runs):
     share = perf.flops_per_step(n, DENSE, B // 2, S) / 2
     for r, res in runs[4].items():
         assert abs(float(res["perf/flops"]) / share - 1) <= 0.10, (r, float(res["perf/flops"]) / share)
+
+
+@pytest.mark.timeout(300)
+def test_count_after_an_eval_step_restores_the_sharded_state(runs):
+    """perf.record_step_cost after make_eval_step at fsdp 2 x tp 2 (FSDP2
+    leaves the root unsharded after a forward without gradients): the
+    ranks live, the count is recorded, and every parameter and AdamW leaf
+    is what it was before the count, bit for bit."""
+    for r, res in runs[4].items():
+        assert bool(res["perf/after_eval"]), r
 
 
 @pytest.mark.timeout(300)

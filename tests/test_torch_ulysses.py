@@ -139,20 +139,17 @@ def test_gate_chooses_flash_or_dense_as_jax(monkeypatch, sp):
 
 
 def test_ulysses_refuses_sharded_batch_or_heads_and_odd_heads():
-    """dp and fsdp are process axes: a mesh with fsdp=2 runs Ulysses over
-    the rows this rank holds, as the sp=2 mesh alone does. sp beside tp
-    across ranks still raises, under the sequence-parallelism item."""
+    """A mesh one process holds whole with fsdp=2, or with tp=2 beside
+    sp=2, runs Ulysses over the rows and heads it is given (this rank's
+    rows, this rank's tp heads), as the sp=2 mesh alone does. Heads that do
+    not divide over sp still raise."""
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(2, 32, 4, 8, generator=gen)
     kv = torch.randn(2, 32, 2, 8, generator=gen)
-    sharded = make_ulysses_attention(make_mesh(fsdp=2, sp=2, devices=[CPU] * 4))
     alone = make_ulysses_attention(make_mesh(sp=2, devices=[CPU] * 2))
-    assert torch.equal(sharded(q, kv, kv), alone(q, kv, kv))
-    with pytest.raises(
-        NotImplementedError,
-        match="ROADMAP.md queue 1: sequence and pipeline parallelism across ranks",
-    ):
-        make_ulysses_attention(make_mesh(sp=2, tp=2, devices=[CPU] * 4))
+    for axes in (dict(fsdp=2), dict(tp=2)):
+        sharded = make_ulysses_attention(make_mesh(sp=2, **axes, devices=[CPU] * 4))
+        assert torch.equal(sharded(q, kv, kv), alone(q, kv, kv)), axes
     uly = make_ulysses_attention(make_mesh(sp=4, devices=[CPU] * 4))
     x = torch.zeros(1, 32, 6, 8)
     with pytest.raises(ValueError, match="heads"):

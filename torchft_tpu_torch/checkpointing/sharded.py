@@ -18,7 +18,10 @@ In this package a leaf has ONE addressable shard on each rank, and its
   ranks): its local shard, keyed by the shard's global slice in the form
   JAX writes for a device array's shard (``("s", start, stop, None)`` on a
   split dim, ``("s", None, None, None)`` on a whole one). Rank r of the
-  sender sends to rank r of the receiver, which must hold the same slice.
+  sender sends to rank r of the receiver, which must hold the same slice:
+  over ``pp`` rank r holds the same stage's layers (and the replicated
+  embedding, norm and head) in every group, over ``sp`` the same leaves
+  as its sp peers.
 
 A numpy leaf stays a plain ``_TensorRef``.
 

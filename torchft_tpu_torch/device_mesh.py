@@ -5,10 +5,10 @@ The port of ``torchft_tpu/device_mesh.py`` (reference:
 ``ft_init_device_mesh``). A :class:`ManagedMesh` pairs
 
 - the inner :class:`~torchft_tpu_torch.parallel.mesh.Mesh` of this replica
-  group (static axes): ``dp`` and ``fsdp`` are process axes, over the
-  group's ranks (one device each; FSDP2 shards the state over them), and
-  ``pp``, ``ep``, ``sp`` and ``tp`` in-process axes, over the devices of
-  each rank's process (``parallel/mesh.py``); and
+  group (static axes): in a group of processes every axis is a process
+  axis, over the group's ranks (one device each; ``parallel/mesh.py``),
+  and a mesh one process holds whole runs its axes over the devices of
+  that process; and
 - the Manager's dynamic replica axis, sized by the live quorum
   (``num_participants``), which carries the outer gradient average. Each
   rank of a group runs its own Manager, and rank r of every group averages
@@ -29,7 +29,7 @@ import torch
 
 from torchft_tpu_torch.ddp import DistributedDataParallel
 from torchft_tpu_torch.manager import Manager
-from torchft_tpu_torch.parallel.mesh import PROCESS_AXES, Mesh
+from torchft_tpu_torch.parallel.mesh import Mesh
 
 
 class MeshView:
@@ -242,33 +242,34 @@ class ManagedMesh:
     def device_coordinate(self, device: Any = None) -> Dict[str, int]:
         """``device``'s per-axis position in the inner mesh (default: the
         mesh's first device; every torch device is local to its process).
-        In a group of processes (``mesh.process_rank`` set) the process
-        axes read this process's rank, and the device is looked up among
-        the in-process axes at that coordinate. Raises where the device is
-        not there, or appears more than once (a mesh that repeats one
-        device over an in-process axis gives it no single coordinate)."""
+        In a group of processes (``mesh.process_rank`` set) every axis is a
+        process axis: the coordinate is this process's rank's, and a
+        ``device`` given must be the mesh's device there. For a mesh one
+        process holds whole, the device is looked up in it. Raises where
+        the device is not there, or appears more than once (a mesh that
+        repeats one device gives it no single coordinate)."""
         key = None if device is None else torch.device(device)
         cached = self._coord_cache.get(key)
         if cached is not None:
             return dict(cached)
         devs = self.mesh.devices
-        names = self.mesh.axis_names
-        fixed: Dict[str, int] = {}
         if self.mesh.process_rank is not None:
-            fixed = self.mesh.process_coordinate()
-            devs = devs[tuple(fixed.get(a, slice(None)) for a in names)]
-            names = tuple(a for a in names if a not in PROCESS_AXES)
-        target = devs.flat[0] if key is None else key
-        hits = [
-            pos for pos, d in np.ndenumerate(devs) if d == target
-        ]
-        if len(hits) != 1:
-            raise ValueError(
-                f"device {target} appears {len(hits)} times in mesh "
-                f"{self.mesh}; a coordinate needs exactly one"
-            )
-        coords = {**fixed, **{a: int(i) for a, i in zip(names, hits[0])}}
-        coords = {a: coords[a] for a in self.mesh.axis_names}
+            coords = self.mesh.process_coordinate()
+            mine = devs[tuple(coords[a] for a in self.mesh.axis_names)]
+            if key is not None and key != mine:
+                raise ValueError(
+                    f"device {key} is not this process's device {mine} in "
+                    f"mesh {self.mesh}"
+                )
+        else:
+            target = devs.flat[0] if key is None else key
+            hits = [pos for pos, d in np.ndenumerate(devs) if d == target]
+            if len(hits) != 1:
+                raise ValueError(
+                    f"device {target} appears {len(hits)} times in mesh "
+                    f"{self.mesh}; a coordinate needs exactly one"
+                )
+            coords = {a: int(i) for a, i in zip(self.mesh.axis_names, hits[0])}
         self._coord_cache[key] = coords
         return dict(coords)
 

@@ -277,6 +277,9 @@ class Attention(nn.Module):
         # this rank's contiguous block of heads (colwise), wo its block of
         # input columns (rowwise), and the output is summed over the group.
         self.tp_group: Any = None
+        # Bound likewise: the sequence is then split over this group's
+        # ranks, and the dense and flash attention gather k and v over it.
+        self.sp_group: Any = None
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -293,6 +296,12 @@ class Attention(nn.Module):
         k = apply_rope(k, cos, sin)
         if cfg.attn_impl in ("ring", "ulysses"):
             out = cfg.attn_fn(q, k, v)
+        elif self.sp_group is not None:
+            # JAX's dense attention on a sequence-sharded batch: XLA
+            # gathers k and v. The blocks fold at their global offsets.
+            from torchft_tpu_torch.parallel.ring_attention import gathered_attention
+
+            out = gathered_attention(q, k, v, self.sp_group)
         elif (
             cfg.attn_impl == "flash"
             and S >= cfg.flash_min_seq
@@ -488,7 +497,10 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        # Keyed by the block's index in the whole model, so a pipeline
+        # stage's run of blocks keeps the dense model's names
+        # (``layers.<i>.``, ``parallel/train.py``).
+        self.layers = nn.ModuleDict({str(i): Block(cfg) for i in range(cfg.num_layers)})
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps)
         self.lm_head = (
             None
@@ -496,21 +508,44 @@ class Transformer(nn.Module):
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
         )
         # Bound by bind_model_parallel: the embedding and the head are then
-        # this rank's block of vocab rows.
+        # this rank's block of vocab rows; the tokens this rank's block of
+        # the sequence.
         self.tp_group: Any = None
+        self.sp_group: Any = None
 
-    def bind_model_parallel(self, tp_group: Any = None, ep_group: Any = None) -> None:
-        """Binds the model to the torch process groups of its tensor- and
-        expert-parallel ranks (``parallel.train.init_train_state``, after
-        the plan has placed the parameters): every projection, the
-        embedding, the head and the experts then compute with this rank's
-        shards and sum over the groups. None: no such axis."""
+    def bind_model_parallel(
+        self, tp_group: Any = None, ep_group: Any = None, sp_group: Any = None
+    ) -> None:
+        """Binds the model to the torch process groups of its tensor-,
+        expert- and sequence-parallel ranks
+        (``parallel.train.init_train_state``, after the plan has placed the
+        parameters): every projection, the embedding, the head and the
+        experts then compute with this rank's shards and sum over the
+        tensor- and expert-parallel groups; the tokens are this rank's
+        block of the sequence (the sequence-parallel group's rank r holds
+        block r), the RoPE positions start at the block's first position
+        and the dense and flash attention gather k and v over the group.
+        None: no such axis."""
         self.tp_group = tp_group
+        self.sp_group = sp_group
         for m in self.modules():
             if isinstance(m, (Attention, MLP, MoEMLP)):
                 m.tp_group = tp_group
+            if isinstance(m, Attention):
+                m.sp_group = sp_group
             if isinstance(m, MoEMLP):
                 m.ep_group = ep_group
+
+    def sequence_offset(self, seq_len: int) -> int:
+        """The global position of this rank's first token when it holds
+        block r of ``seq_len`` tokens of a sequence split over the
+        sequence-parallel group (r its rank there): r * seq_len; 0 with no
+        such group."""
+        if self.sp_group is None:
+            return 0
+        import torch.distributed as dist
+
+        return dist.get_rank(self.sp_group) * seq_len
 
     def router_aux(self, group: Any = None) -> Optional[torch.Tensor]:
         """The mean over layers of the MoE layers' load-balancing terms from
@@ -523,9 +558,9 @@ class Transformer(nn.Module):
         if self.cfg.num_experts <= 0:
             return None
         if group is None:
-            return torch.stack([block.mlp.aux for block in self.layers]).mean()
+            return torch.stack([b.mlp.aux for b in self.layers.values()]).mean()
         terms = []
-        for block in self.layers:
+        for block in self.layers.values():
             f, p = (_GroupMean.apply(t, group) for t in block.mlp.load)
             terms.append(self.cfg.num_experts * torch.sum(f * p))
         return torch.stack(terms).mean()
@@ -590,14 +625,24 @@ class Transformer(nn.Module):
     def hidden(
         self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """The post-final-norm hidden states [B,S,H] in cfg.dtype."""
+        """The post-final-norm hidden states [B,S,H] in cfg.dtype. The
+        positions default to the tokens' own: ``sequence_offset`` onward.
+        A model that holds one pipeline stage's layers runs only through
+        ``parallel.pipeline.make_pipeline_loss``."""
         cfg = self.cfg
+        if len(self.layers) != cfg.num_layers:
+            raise ValueError(
+                f"this model holds {len(self.layers)} of {cfg.num_layers} "
+                "layers (one pipeline stage): run it through "
+                "parallel.pipeline.make_pipeline_loss"
+            )
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            S = tokens.shape[1]
+            positions = self.sequence_offset(S) + torch.arange(S, device=tokens.device)
             positions = positions.expand(tokens.shape)
         x = self.embed_tokens(tokens)
         cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
-        for block in self.layers:
+        for block in self.layers.values():
             if cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     block, x, cos, sin, use_reentrant=False

@@ -1,7 +1,7 @@
-"""The training step inside one replica group: meshes (process axes dp and
-fsdp, in-process axes pp, ep, sp and tp), sharding rules, ring and Ulysses
-attention, the GPipe pipeline, model building, the sharded train state and
-steps, loss, gradients and the optimizer."""
+"""The training step inside one replica group: meshes (every axis a process
+axis over a group's ranks, or all of them in one process), sharding rules,
+ring and Ulysses attention, the GPipe pipeline, model building, the sharded
+train state and steps, loss, gradients and the optimizer."""
 
 from torchft_tpu_torch.parallel.mesh import (  # noqa: F401
     MESH_AXES,

@@ -11,26 +11,38 @@ order (outermost = slowest-varying over the device order):
   this axis),
 - ``tp``   tensor parallelism (innermost).
 
-The axes are of two kinds.
+A mesh is used in one of two ways.
 
-- ``dp``, ``fsdp``, ``ep`` and ``tp`` are **process axes**: a replica
-  group is ``WORLD_SIZE`` processes, one device each, as torchrun launches
-  them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), a rank's coordinate
-  row-major over them in ``MESH_AXES`` order. They form a torch
-  ``DeviceMesh`` over ("dp", "fsdp", "ep", "tp") (:func:`group_device_mesh`).
-  The tensor-parallel plan places the ``tp`` and ``ep`` dims of the
-  parameters over their mesh dims, FSDP2 then shards the rest over
+- **A group of processes** (``process_rank`` set): a replica group is
+  ``WORLD_SIZE`` processes, one device each, as torchrun launches them
+  (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), and every axis is a
+  **process axis**: a rank's coordinate is row-major over ``MESH_AXES``
+  (:meth:`Mesh.process_coordinate`). The tensor-parallel plan places the
+  ``tp`` and ``ep`` dims of the parameters, FSDP2 shards the rest over
   (dp, fsdp) (``parallel/sharding.py``, ``parallel/train.py``); each rank
-  holds the rows of every batch at its (dp, fsdp) coordinate, and the ranks
-  that differ only in ``ep`` or ``tp`` hold the same rows.
-- ``pp`` and ``sp`` are **in-process axes**: a :class:`Mesh` is an array of
-  ``torch.device``, and a process runs the ranks of these axes one after
-  another over its own devices. A device may appear more than once: a mesh
-  of one card repeated stands in for the JAX package's virtual host
-  devices, so the ring and Ulysses run their ``sp`` ranks, and the pipeline
-  its ``pp`` stages, on that card. Placing them across ranks is not ported
-  (``sharding.SP_PP_ITEM``).
+  holds the rows of every batch at its (dp, fsdp) coordinate and the
+  sequence block at its ``sp`` coordinate; the rank at ``pp`` coordinate s
+  holds stage s's layers (``parallel/pipeline.py``).
 
+  ``sp`` and ``pp`` are not torch ``DeviceMesh`` dims of their own.
+  FSDP2 on torch 2.11 composes with the tensor-parallel plan only when
+  its root DeviceMesh is exactly its (dp, fsdp) dims and the plan's (ep,
+  tp) dims, so :func:`group_device_mesh` is a mesh of those dims whose
+  ``dp`` dim spans the (dp, sp) ranks: the parameters are replicated over
+  ``sp`` as over dp, and FSDP2's replicate all-reduce averages their
+  gradients over both. Over ``pp`` each stage has a DeviceMesh of its
+  own. The exchanges of activations go over **c10d subgroups**:
+  :func:`axis_group` makes, on every rank in one order, a group of the
+  ranks that differ only in the named axes (the ring, Ulysses and the
+  gathered default attention over sp's; the stages over pp's, which also
+  sums the gradients of the embedding, final norm and head,
+  ``parallel/train.py``).
+- **One process holds the whole mesh** (``process_rank`` None): a
+  :class:`Mesh` is an array of ``torch.device``, and the ring and Ulysses
+  run their ``sp`` ranks, and the pipeline its ``pp`` stages, one after
+  another over the mesh's devices. A device may appear more than once: a
+  mesh of one card repeated stands in for the JAX package's virtual host
+  devices.
 """
 
 from __future__ import annotations
@@ -42,18 +54,19 @@ import numpy as np
 import torch
 
 MESH_AXES = ("dp", "pp", "fsdp", "ep", "sp", "tp")
-# Axes over the processes of a replica group (torch DeviceMesh: FSDP2 over
-# dp and fsdp, the tensor-parallel plan over ep and tp), in MESH_AXES order;
-# the others run inside each process.
-PROCESS_AXES = ("dp", "fsdp", "ep", "tp")
+# Axes over the processes of a replica group: every axis.
+PROCESS_AXES = MESH_AXES
+# The process axes of a group's torch DeviceMesh (FSDP2 over dp and fsdp,
+# the tensor-parallel plan over ep and tp), in MESH_AXES order.
+DEVICE_MESH_AXES = ("dp", "fsdp", "ep", "tp")
 
 
 class Mesh:
     """``devices``: an object array of ``torch.device`` with one dim per
     name in ``axis_names``. ``shape`` maps each axis to its size, in axis
     order, as ``jax.sharding.Mesh.shape`` does. ``process_rank``: this
-    process's rank over the process axes (row-major over dp, fsdp, ep, tp)
-    in a group of processes; None for a mesh one process holds whole."""
+    process's rank in a group of processes (its coordinate row-major over
+    every axis); None for a mesh one process holds whole."""
 
     def __init__(
         self,
@@ -68,6 +81,8 @@ class Mesh:
         self.devices = devices
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.process_rank = process_rank
+        # axis_group's c10d groups, by their axes.
+        self.groups: Dict[Tuple[str, ...], Any] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -203,46 +218,67 @@ def group_mesh(
     (``train_hsdp.py``), ``device`` at every coordinate, and ``rank`` as
     its ``process_rank``. ``family`` is the trainer's model: dense models
     (any name but ``moe`` and ``pipeline``) take :func:`auto_mesh`'s
-    factoring (4 ranks: fsdp 2 x tp 2). ``moe`` on an even world gives its
-    experts an ``ep`` extent of 2: ``fsdp = 2 if (n/2) % 2 == 0 else 1``,
-    ``tp = n / 2 / fsdp`` (2 ranks: ep 2; 4: fsdp 2 x ep 2). ``pipeline``
-    runs its stages in-process over auto_mesh's ``fsdp``.
+    factoring (4 ranks: fsdp 2 x tp 2; 8: fsdp 2 x tp 2 x sp 2).
+    ``pipeline`` on an even world puts its GPipe stages on other ranks,
+    ``make_mesh(pp=2, dp=n/2)`` (2 ranks: pp 2; 4: pp 2 x dp 2), and on an
+    odd one takes auto_mesh. ``moe`` on an even world gives its experts an
+    ``ep`` extent of 2: ``fsdp = 2 if (n/2) % 2 == 0 else 1``, ``tp = n /
+    2 / fsdp`` (2 ranks: ep 2; 4: fsdp 2 x ep 2).
 
-    Raises where the factoring needs ``sp`` above 1 (8 dense ranks factor
-    as fsdp 2 x tp 2 x sp 2: sp is an in-process axis); for ``pipeline``
-    where it needs ``tp`` (4 ranks: the JAX trainer places the GPipe stages
-    on other ranks there, ``make_mesh(pp=2, dp=2)``); and for ``moe`` where
-    it needs both ``ep`` and ``tp`` (6 ranks and up), a plan no test holds
-    yet."""
-    from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
-
+    Raises for ``moe`` where that needs both ``ep`` and ``tp`` (6 ranks
+    and up), a plan no test holds yet."""
     devices = [device] * world_size
-    if family == "moe" and world_size % 2 == 0:
+    even = world_size % 2 == 0
+    if family == "pipeline" and even:
+        mesh = make_mesh(pp=2, dp=world_size // 2, devices=devices)
+    elif family == "moe" and even:
         rest = world_size // 2
         fsdp = 2 if rest % 2 == 0 else 1
         mesh = make_mesh(fsdp=fsdp, ep=2, tp=rest // fsdp, devices=devices)
     else:
         mesh = auto_mesh(world_size, devices=devices)
-    where = f"a {family} group of {world_size} ranks factors as {mesh.shape}"
-    if mesh.shape["sp"] > 1:
-        raise NotImplementedError(
-            f"{where}: sp={mesh.shape['sp']} would need sequence parallelism "
-            f"across ranks ({SP_PP_ITEM}); run a group of fewer than 8 ranks"
-        )
-    if family == "pipeline" and mesh.shape["tp"] > 1:
-        raise NotImplementedError(
-            f"{where}: the JAX trainer puts the GPipe stages on other ranks "
-            f"there, make_mesh(pp=2, dp={world_size // 2}) ({SP_PP_ITEM}); "
-            "run a group of 1 or 2 ranks"
-        )
     if mesh.shape["ep"] > 1 and mesh.shape["tp"] > 1:
         raise NotImplementedError(
-            f"{where}: experts placed over both ep and tp have no test yet "
+            f"a {family} group of {world_size} ranks factors as {mesh.shape}: "
+            "experts placed over both ep and tp have no test yet "
             "(ROADMAP.md queue 1, what is left of tensor and expert "
             "parallelism across ranks); run a group of 2 or 4 ranks"
         )
     mesh.process_rank = rank
     return mesh
+
+
+def axis_group(mesh: Mesh, axes: Sequence[str]) -> Any:
+    """The c10d process group of the ranks of ``mesh``'s group of
+    processes that differ from this one (``mesh.process_rank``) only in
+    ``axes``, ranked row-major over them in ``MESH_AXES`` order: over one
+    axis, a rank's group rank is its coordinate there. The whole world's
+    group where that is every rank. The default process group must be up
+    (:func:`init_group`).
+
+    The first call for a set of axes makes every such group, on every rank
+    in one order (``new_group`` is collective over the world), and keeps
+    them on the mesh; later calls return the kept one. Every rank must
+    therefore ask for the same sets of axes in the same order."""
+    import torch.distributed as dist
+
+    key = tuple(a for a in MESH_AXES if a in axes)
+    if key not in mesh.groups:
+        shape = [mesh.shape[a] for a in MESH_AXES]
+        keep = [i for i, a in enumerate(MESH_AXES) if a in key]
+        rest = [i for i, a in enumerate(MESH_AXES) if a not in key]
+        size = int(np.prod([shape[i] for i in keep]))
+        rows = np.arange(int(np.prod(shape))).reshape(shape)
+        rows = rows.transpose(rest + keep).reshape(-1, size)
+        if rows.shape[0] == 1:
+            mine = dist.group.WORLD
+        else:
+            for row in rows:
+                group = dist.new_group([int(r) for r in row])
+                if mesh.process_rank in row:
+                    mine = group
+        mesh.groups[key] = mine
+    return mesh.groups[key]
 
 
 def group_env() -> Tuple[int, int]:
@@ -293,21 +329,99 @@ def init_group(device: torch.device) -> Tuple[int, int]:
 
 
 def group_device_mesh(mesh: Mesh) -> Any:
-    """The torch ``DeviceMesh`` over the process axes of ``mesh``, on the
-    default process group (:func:`init_group`), whose size must be their
-    product: ``fsdp`` always, ``dp``, ``ep`` and ``tp`` where above 1, in
-    that order. FSDP2 composes with the tensor-parallel plan on the
+    """The torch ``DeviceMesh`` of FSDP2 and the tensor-parallel plan at
+    this rank's pp coordinate of ``mesh``'s group of processes, on the
+    default process group (:func:`init_group`), whose size must be the
+    product of every axis: dims ``fsdp`` always, ``dp``, ``ep`` and ``tp``
+    where above 1, in that order. Its ``dp`` dim spans the ranks that
+    differ in dp or sp (row-major over the two): the parameters are
+    replicated over sp as over dp, so FSDP2's replicate all-reduce averages
+    the gradients over both. FSDP2 composes with the plan on the
     concatenation of its (dp, fsdp) mesh and the plan's (ep, tp) mesh, so
-    the group's mesh is exactly those dims."""
+    the mesh is exactly those dims. Where pp and sp are 1 it spans the
+    world in rank order (``init_device_mesh``); else it is built from
+    :func:`axis_group`'s groups of its dims (``DeviceMesh.from_group``),
+    each pp stage a mesh of its own."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-    names = tuple(a for a in PROCESS_AXES if a == "fsdp" or mesh.shape[a] > 1)
-    shape = tuple(mesh.shape[a] for a in names)
-    if dist.get_world_size() != int(np.prod(shape)):
+    sizes = {a: mesh.shape[a] for a in DEVICE_MESH_AXES}
+    sizes["dp"] *= mesh.shape["sp"]
+    names = tuple(a for a in DEVICE_MESH_AXES if a == "fsdp" or sizes[a] > 1)
+    shape = tuple(sizes[a] for a in names)
+    if dist.get_world_size() != mesh.size:
         raise ValueError(
-            f"a world of {dist.get_world_size()} ranks for process axes "
-            f"{dict(zip(names, shape))}"
+            f"a world of {dist.get_world_size()} ranks for the mesh {mesh.shape}"
         )
     device_type = mesh.devices.flat[0].type
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    if mesh.shape["pp"] * mesh.shape["sp"] == 1:
+        return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    # (dp, pp, fsdp, ep, sp, tp) -> this rank's stage, sp beside dp.
+    ranks = np.arange(mesh.size).reshape([mesh.shape[a] for a in MESH_AXES])
+    ranks = np.moveaxis(ranks[:, mesh.process_coordinate()["pp"]], 3, 1)
+    ranks = ranks.reshape(shape)
+    groups = [axis_group(mesh, ("dp", "sp") if a == "dp" else (a,)) for a in names]
+    if len(names) == 1:
+        return DeviceMesh.from_group(
+            groups[0], device_type, mesh=ranks.tolist(), mesh_dim_names=names
+        )
+    return DeviceMesh.from_group(
+        groups, device_type, mesh=torch.from_numpy(ranks), mesh_dim_names=names
+    )
+
+
+def gloo_for_device(group: Any, device: torch.device) -> bool:
+    """Whether ``group`` carries ``device``'s tensors over gloo and the
+    device is not the CPU (a world of ``cpu:gloo,cuda:gloo`` ranks sharing
+    a card). gloo stages its collectives of such tensors through the host,
+    but its point-to-point ``send`` of one aborts the process (torch 2.11,
+    ``chip_smoke.py`` phase 21's probe): :func:`exchange` then stages
+    through the host itself. Read from the group's backend
+    configuration."""
+    import torch.distributed as dist
+
+    if device.type == "cpu":
+        return False
+    config = dist.get_backend_config(group)
+    by_device = dict(
+        item.split(":", 1) if ":" in item else (device.type, item)
+        for item in config.split(",")
+    )
+    return by_device.get(device.type) == "gloo"
+
+
+def exchange(
+    group: Any,
+    sends: Sequence[Tuple[torch.Tensor, int]],
+    recvs: Sequence[Tuple[torch.Tensor, int]],
+    tag: int = 0,
+) -> List[torch.Tensor]:
+    """Point-to-point over ``group``, one ``dist.batch_isend_irecv``: each
+    ``(tensor, peer)`` of ``sends`` to that group rank, and into each
+    ``(buffer, peer)`` of ``recvs`` what that group rank sends; returns the
+    received tensors, on the buffers' devices (the buffers themselves where
+    nothing is staged: pass fresh ones). The i-th send and the i-th
+    receive carry tag ``tag + i``, so a peer's i-th receive takes this
+    rank's i-th send. Where gloo carries the device's tensors
+    (:func:`gloo_for_device`), both sides go through host copies."""
+    import torch.distributed as dist
+
+    devices = {t.device for t, _ in (*sends, *recvs)}
+    staged = any(gloo_for_device(group, d) for d in devices)
+    ops, bufs = [], []
+    for i, (t, peer) in enumerate(sends):
+        t = t.detach().contiguous()
+        ops.append(dist.P2POp(
+            dist.isend, t.cpu() if staged else t,
+            dist.get_global_rank(group, peer), group, tag + i,
+        ))
+    for i, (buf, peer) in enumerate(recvs):
+        if staged:
+            buf = torch.empty(buf.shape, dtype=buf.dtype)
+        bufs.append(buf)
+        ops.append(dist.P2POp(
+            dist.irecv, buf, dist.get_global_rank(group, peer), group, tag + i,
+        ))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [b.to(like.device) for b, (like, _) in zip(bufs, recvs)]

@@ -4,13 +4,29 @@ mesh's ``sp`` axis (context parallelism for long sequences).
 The port of ``torchft_tpu/parallel/ring_attention.py``. Each ``sp`` rank
 holds one query shard and sees every key/value shard pass by, one hop of the
 ring at a time, folding each into an online softmax in fp32. In JAX the
-ranks run in one SPMD program and ``ppermute`` moves the blocks. Here
-:func:`make_ring_attention` runs the ranks' bodies one after another, each on
-its own device, and the rotate step moves a block to the receiving rank's
-device with ``.to()``: a no-op on a mesh that repeats one device (the
-one-card stand-in for the JAX tests' virtual devices). A ring across
-distinct cards or ranks, with the rotation overlapping the fold, is not
-ported (``sharding.SP_PP_ITEM``).
+ranks run in one SPMD program and ``ppermute`` moves the blocks.
+:func:`make_ring_attention` runs the ring in one of two ways.
+
+- Over the ``sp`` ranks of a group of processes (the mesh's
+  ``process_rank`` set): each rank runs its own body on its block of the
+  sequence, and a hop sends the rank's block to ``idx + 1`` and receives
+  ``idx - 1``'s over the group's ``sp`` subgroup (:class:`_RingHop`, whose
+  backward is the reverse hop: the transpose of ``ppermute``).
+- In one process that holds the whole mesh: the ranks' bodies run one
+  after another, each on its own device, and the rotate step moves a block
+  to the receiving rank's device with ``.to()``: a no-op on a mesh that
+  repeats one device (the one-card stand-in for the JAX tests' virtual
+  devices).
+
+A ring whose ranks sit on distinct cards, with the rotation overlapping the
+fold on a side stream, is not run (ROADMAP.md queue 1 item 5: a ring
+across cards); on one card the two ranks share it.
+
+:func:`gathered_attention` is the dense and flash attention of a model
+whose sequence is split over ``sp`` ranks: JAX's dense attention on a
+sequence-sharded batch, where XLA gathers k and v. Here k and v are
+gathered over the group (backward: a reduce-scatter of their gradients)
+and folded by the ring's own body at their global offsets.
 
 Two per-shard bodies, as in JAX: :func:`ring_attention_shard_flash` folds
 each block with the offset-block flash kernels
@@ -24,13 +40,12 @@ receives ``idx - 1``'s.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
 from torchft_tpu_torch.ops.flash_attention import flash_attention_block, supports
-from torchft_tpu_torch.parallel.mesh import Mesh
-from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
+from torchft_tpu_torch.parallel.mesh import Mesh, axis_group, exchange
 
 Rotate = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -156,24 +171,117 @@ def _receiver(
     return rotate
 
 
+class _RingHop(torch.autograd.Function):
+    """One hop of the ring over a process group: this rank's ``(k, v)``
+    block goes to group rank ``idx + 1``, and ``idx - 1``'s comes back.
+    The backward runs the reverse hop on the gradients."""
+
+    @staticmethod
+    def forward(ctx: Any, k: torch.Tensor, v: torch.Tensor, group: Any):
+        ctx.group = group
+        return tuple(_hop(group, (k, v), +1))
+
+    @staticmethod
+    def backward(ctx: Any, dk: torch.Tensor, dv: torch.Tensor):
+        return (*_hop(ctx.group, (dk, dv), -1), None)
+
+
+def _hop(group: Any, blocks: Sequence[torch.Tensor], step: int) -> list:
+    """``blocks`` sent to group rank ``idx + step`` (mod the group's size),
+    the blocks of rank ``idx - step`` received."""
+    import torch.distributed as dist
+
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    to, frm = (idx + step) % n, (idx - step) % n
+    return exchange(
+        group,
+        [(b, to) for b in blocks],
+        [(torch.empty_like(b, memory_format=torch.contiguous_format), frm)
+         for b in blocks],
+    )
+
+
+def ring_hop(group: Any) -> Rotate:
+    """The rotate step of a ring over the ranks of ``group``: a
+    differentiable :class:`_RingHop`."""
+    return lambda k, v: _RingHop.apply(k, v, group)  # noqa: E731
+
+
+class _GatherSequence(torch.autograd.Function):
+    """[n, ...]: every rank's block of ``group`` (``x``, this rank's), in
+    group rank order; the gradient of this rank's block is the sum over the
+    ranks of their gradients of it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out.view((n,) + tuple(x.shape))
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor):
+        import torch.distributed as dist
+
+        out = grad.new_empty(tuple(grad.shape[1:]))
+        dist.reduce_scatter_tensor(out, grad.flatten(0, 1).contiguous(), group=ctx.group)
+        return out, None
+
+
+def gathered_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group: Any
+) -> torch.Tensor:
+    """Causal attention of this rank's block of queries over the whole
+    sequence, when the sequence is split over the ranks of ``group`` (rank
+    r holds block r of q, k and v): k and v are gathered over the group and
+    folded in by the ring's body at their global offsets, the flash fold
+    (the offset-block kernels) for shards the flash gate takes (>= 256
+    tokens, block-divisible), the dense fold otherwise. Differentiable."""
+    import torch.distributed as dist
+
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    ks = _GatherSequence.apply(k, group).unbind(0)
+    vs = _GatherSequence.apply(v, group).unbind(0)
+    body = (
+        ring_attention_shard_flash
+        if _flash_fold_supported(q.shape[1], k.shape[1]) else ring_attention_shard
+    )
+    return body(q, ks[idx], vs[idx], idx, n, _receiver(idx, ks, vs, q.device))
+
+
 def make_ring_attention(mesh: Mesh, use_flash: Optional[bool] = None):
-    """Returns causal ``attn_fn(q, k, v)`` over [B, S, H, Dh]: the sequence
-    split over the mesh's ``sp`` devices, the ring run across them, the
-    output gathered back on q's device. Differentiable.
+    """Returns causal ``attn_fn(q, k, v)`` over [B, S, H, Dh]. Differentiable.
 
     ``use_flash``: fold each block with the flash kernels instead of the
     dense fold; None picks them for shards the flash gate takes (>= 256
-    tokens, block-divisible). The batch is this rank's rows and the heads
-    are this rank's heads: dp, fsdp and tp are process axes
-    (``parallel/mesh.py``). A ring of sp above 1 inside a tensor-parallel
-    group (tp above 1) raises: the sequence ranks of a group's ranks are
-    not placed across ranks."""
-    if mesh.shape["tp"] > 1 and mesh.shape["sp"] > 1:
-        raise NotImplementedError(
-            f"ring attention over sp={mesh.shape['sp']} on a mesh with "
-            f"tp={mesh.shape['tp']}: sequence parallelism beside tensor "
-            f"parallelism across ranks is not ported ({SP_PP_ITEM})"
-        )
+    tokens, block-divisible). The heads are this rank's heads (at tp above
+    1, its tp block) and the batch its rows.
+
+    Over a group of processes (``mesh.process_rank`` set) with ``sp``
+    above 1, q, k and v are this rank's block of the sequence, the ring
+    runs over the group's ``sp`` subgroup (``parallel.mesh.axis_group``),
+    and the output is this rank's block. Otherwise the sequence is split
+    over the mesh's ``sp`` devices, the ring run across them in this
+    process, and the output gathered back on q's device."""
+    if mesh.process_rank is not None and mesh.shape["sp"] > 1:
+
+        def ranks_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            import torch.distributed as dist
+
+            group = axis_group(mesh, ("sp",))
+            flash = use_flash
+            if flash is None:
+                flash = _flash_fold_supported(q.shape[1], k.shape[1])
+            body = ring_attention_shard_flash if flash else ring_attention_shard
+            return body(
+                q, k, v, dist.get_rank(group), dist.get_world_size(group),
+                ring_hop(group),
+            )
+
+        return ranks_fn
     devices = mesh.axis_devices("sp")
     n = len(devices)
 

@@ -12,10 +12,10 @@ dim of the parameter.
 
 - Contraction-input dims shard over ``fsdp``, head and feature output dims
   over ``tp``, experts over ``ep``; norms replicate.
-- Batches shard their rows over (dp, fsdp), contiguous, as JAX's
-  ``P(("dp", "fsdp"), "sp")`` lays them out; the ranks that differ only in
-  ``ep`` or ``tp`` take the same rows, and the sequence dim stays whole on
-  a rank (``sp`` is an in-process axis: ring and Ulysses split it).
+- Batches shard their rows over (dp, fsdp) and their sequence over
+  ``sp``, contiguous, as JAX's ``P(("dp", "fsdp"), "sp")`` lays them out;
+  the ranks that differ only in ``pp``, ``ep`` or ``tp`` take the same
+  block.
 
 The parameters are placed in two steps, as FSDP2 composes with tensor
 parallelism. First the **tensor-parallel plan** (:func:`tp_plan`): each
@@ -31,8 +31,11 @@ those styles' hooks would sit. Then FSDP2 shards the ``fsdp`` dim over the
 group's (dp, fsdp) mesh dims, replicated over ``dp``
 (:func:`param_placements`). It shards every parameter it manages, so a
 parameter whose spec names no ``fsdp`` dim (the norm scales) takes its dim
-0, where JAX replicates it: a placement, not another value. ``sp`` and
-``pp`` across ranks are not ported (:data:`SP_PP_ITEM`).
+0, where JAX replicates it: a placement, not another value. The
+parameters are replicated over ``sp``; over ``pp`` a rank holds its stage's
+layers and the embedding, the final norm and the head
+(``parallel/pipeline.py``), as JAX's ``pipeline_param_specs`` shards the
+stacked layer dim over ``pp`` and replicates the rest.
 """
 
 from __future__ import annotations
@@ -43,11 +46,6 @@ import numpy as np
 import torch
 
 from torchft_tpu_torch.parallel.mesh import PROCESS_AXES, Mesh
-
-# What is still not placed across ranks: ring and Ulysses attention over a
-# process axis, and a pipeline whose stages sit on other ranks (the JAX
-# trainer's make_mesh(pp=2, dp=n/2)).
-SP_PP_ITEM = "ROADMAP.md queue 1: sequence and pipeline parallelism across ranks"
 
 # The process axes the tensor-parallel plan places, in mesh order.
 MODEL_AXES = ("ep", "tp")
@@ -172,22 +170,30 @@ def param_placements(model: torch.nn.Module, device_mesh: Any) -> Dict[str, tupl
 param_shardings = param_placements
 
 
-def batch_sharding(mesh: Mesh, rank: int, batch_size: int) -> slice:
-    """The rows of a global ``[batch_size, S]`` batch that process ``rank``
-    of the group holds: the batch split over (dp, fsdp) in contiguous
+def batch_sharding(
+    mesh: Mesh, rank: int, shape: Tuple[int, int]
+) -> Tuple[slice, slice]:
+    """``(rows, cols)``: the block of a global ``shape`` = ``[B, S]`` batch
+    that process ``rank`` of the group holds, as JAX's ``P(("dp", "fsdp"),
+    "sp")`` lays it out: the rows split over (dp, fsdp) in contiguous
     blocks, the rank's (dp, fsdp) coordinate (row-major over the process
-    axes) picking the block, as JAX's ``P(("dp", "fsdp"), "sp")`` lays it
-    out. Ranks that differ only in ep or tp take the same rows."""
-    shape = [mesh.shape[a] for a in PROCESS_AXES]
-    n = mesh.shape["dp"] * mesh.shape["fsdp"]
-    if batch_size % n:
-        raise ValueError(f"batch {batch_size} not divisible by dp*fsdp={n}")
-    if not 0 <= rank < int(np.prod(shape)):
-        raise ValueError(f"rank {rank} outside a group of {int(np.prod(shape))}")
-    coord = dict(zip(PROCESS_AXES, np.unravel_index(rank, shape)))
+    axes) picking the block, and the sequence split over ``sp`` the same
+    way. Ranks that differ only in pp, ep or tp take the same block."""
+    B, S = shape
+    n, sp = mesh.shape["dp"] * mesh.shape["fsdp"], mesh.shape["sp"]
+    if B % n:
+        raise ValueError(f"batch {B} not divisible by dp*fsdp={n}")
+    if S % sp:
+        raise ValueError(f"sequence {S} not divisible by sp={sp}")
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a group of {mesh.size}")
+    coord = dict(zip(
+        PROCESS_AXES,
+        np.unravel_index(rank, [mesh.shape[a] for a in PROCESS_AXES]),
+    ))
     block = int(coord["dp"]) * mesh.shape["fsdp"] + int(coord["fsdp"])
-    rows = batch_size // n
-    return slice(block * rows, (block + 1) * rows)
+    rows, cols, s = B // n, S // sp, int(coord["sp"])
+    return slice(block * rows, (block + 1) * rows), slice(s * cols, (s + 1) * cols)
 
 
 def local_slices(t: Any) -> Tuple[slice, ...]:

@@ -6,7 +6,8 @@ router's aux term and the default AdamW, in two forms.
 
 - **Sharded** (the JAX package's pjit step): :func:`init_train_state`
   builds the state born sharded over the group's process axes: the
-  tensor-parallel plan over (ep, tp), then FSDP2 over (dp, fsdp); and
+  tensor-parallel plan over (ep, tp), then FSDP2 over (dp, fsdp),
+  replicated over sp, and split by stage over pp; and
   :func:`make_train_step` (``accum_steps``),
   :func:`make_grad_step` (the DDP variant ``train_hsdp`` runs: the
   optimizer applies after the Manager's replica-axis gradient allreduce)
@@ -17,11 +18,19 @@ router's aux term and the default AdamW, in two forms.
   plain model, for callers that pass no mesh.
 
 The losses of the ranks of a group add up to the global batch's: each rank
-normalizes its rows' token losses by the whole batch's mask count and
-scales by the size of its batch group (the ranks of (dp, fsdp) at its own
-(ep, tp) coordinate, which hold the batch's rows between them), because
-FSDP2 averages the gradients over that group. The ranks of (ep, tp) at one
-(dp, fsdp) coordinate hold the same rows and compute the same loss.
+normalizes its block's token losses by the whole batch's mask count and
+scales by the size of its batch group (the ranks of (dp, fsdp, sp) at its
+own (pp, ep, tp) coordinate, which hold the batch's blocks between them),
+because FSDP2 averages the gradients over that group: the DeviceMesh's
+``dp`` dim spans the (dp, sp) ranks (``parallel.mesh.group_device_mesh``;
+the parameters are replicated over sp, so this is JAX's implied psum of
+the rank's share). The ranks of (ep,
+tp) at one (dp, fsdp, sp) coordinate hold the same block and compute the
+same loss. Over ``pp`` the last stage computes the loss; the embedding,
+final norm and head, replicated over pp, have their gradients summed over
+the ``pp`` subgroup after the backward (each stage holds its part: the
+embedding's on stage 0, the head's on the last), and the reported loss is
+summed over pp as well, so every rank logs and votes the same number.
 """
 
 from __future__ import annotations
@@ -44,11 +53,10 @@ from torchft_tpu_torch.models.llama import (
     _SumOverGroups,
     _to_groups,
 )
-from torchft_tpu_torch.parallel.mesh import Mesh, group_device_mesh
-from torchft_tpu_torch.parallel.pipeline import make_pipeline_loss
+from torchft_tpu_torch.parallel.mesh import Mesh, axis_group, group_device_mesh
+from torchft_tpu_torch.parallel.pipeline import check_pipeline_mesh, make_pipeline_loss
 from torchft_tpu_torch.parallel.ring_attention import make_ring_attention
 from torchft_tpu_torch.parallel.sharding import (
-    MODEL_AXES,
     batch_sharding,
     param_placements,
     param_specs,
@@ -240,9 +248,11 @@ def pipeline_grad_step(
 class TrainState:
     """One rank's training state: the count of applied steps, the model
     (its parameters DTensors over ``device_mesh``), its optimizer, the
-    group's :class:`Mesh` and torch ``DeviceMesh``, and the process group
-    of this rank's batch group (the (dp, fsdp) ranks at its (ep, tp)
-    coordinate; None where that is this rank alone)."""
+    group's :class:`Mesh` and torch ``DeviceMesh``, and process groups:
+    this rank's batch group (the (dp, fsdp, sp) ranks at its (pp, ep, tp)
+    coordinate), its loss group (the batch group's ranks at every pp
+    coordinate) and its ``pp`` subgroup; each None where it is this rank
+    alone."""
 
     step: int
     model: Transformer
@@ -250,35 +260,26 @@ class TrainState:
     mesh: Mesh
     device_mesh: Any
     batch_group: Any = None
+    loss_group: Any = None
+    pp_group: Any = None
 
 
-def _fsdp_mesh(mesh: Mesh, device_mesh: Any) -> Any:
-    """What ``fully_shard`` takes: the ("dp", "fsdp") mesh for HSDP (dp
-    replicas of an fsdp-sharded state) when dp is above 1, else its fsdp
-    dim alone (FSDP)."""
-    return device_mesh["dp", "fsdp"] if mesh.shape["dp"] > 1 else device_mesh["fsdp"]
+def _fsdp_mesh(device_mesh: Any) -> Any:
+    """What ``fully_shard`` takes: the ("dp", "fsdp") mesh for HSDP (dp x
+    sp replicas of an fsdp-sharded state) where the mesh has a dp dim,
+    else its fsdp dim alone (FSDP)."""
+    if "dp" in device_mesh.mesh_dim_names:
+        return device_mesh["dp", "fsdp"]
+    return device_mesh["fsdp"]
 
 
-def _batch_group(mesh: Mesh, device_mesh: Any) -> Any:
-    """The process group of this rank's batch group: None where it is this
-    rank alone (no collective: a mean over one rank is the value), the whole
-    world where ep and tp are 1, else the (dp, fsdp) ranks at this rank's
-    (ep, tp) coordinate (every rank makes every such group, in one order,
-    as ``new_group`` requires)."""
-    import torch.distributed as dist
-
-    shape = [mesh.shape[a] for a in ("dp", "fsdp", *MODEL_AXES)]
-    if shape[0] * shape[1] == 1:
+def _group_of(mesh: Mesh, axes: Tuple[str, ...]) -> Any:
+    """:func:`parallel.mesh.axis_group` over ``axes``, or None where it
+    is this rank alone (no collective: a sum over one rank is the
+    value)."""
+    if int(np.prod([mesh.shape[a] for a in axes])) == 1:
         return None
-    if int(np.prod(shape[2:])) == 1:
-        return dist.group.WORLD
-    ranks = np.arange(int(np.prod(shape))).reshape(shape[0] * shape[1], -1)
-    mine = None
-    for column in ranks.T:
-        group = dist.new_group([int(r) for r in column])
-        if dist.get_rank() in column:
-            mine = group
-    return mine
+    return axis_group(mesh, axes)
 
 
 def _place(module: torch.nn.Module, prefix: str, plan: Dict[str, Any],
@@ -352,7 +353,8 @@ def init_train_state(
 ) -> Tuple[TrainState, Dict[str, Any]]:
     """The state of this rank, born sharded, and its placements
     (:func:`state_shardings`). The group's torch world must be up
-    (``parallel.mesh.init_group``) with ``mesh``'s dp*fsdp*ep*tp ranks.
+    (``parallel.mesh.init_group``) with one rank for every coordinate of
+    ``mesh``.
 
     The model is made on the meta device, then its parts are made for real
     in the order ``Transformer.__init__`` makes them, each initialised on
@@ -365,21 +367,41 @@ def init_train_state(
     is the sharded blocks, the root's own parameters and one whole block.
     Gathered, the parameters are those of ``torch.manual_seed(seed);
     build_model(cfg, mesh).to(device)``, bit for bit, at any group size;
-    at one rank each local shard is the whole tensor.
+    at one rank each local shard is the whole tensor. Over ``pp`` the rank
+    at coordinate s is born holding only stage s's layers (``layers.<i>``
+    for i in [s L/pp, (s+1) L/pp); the other blocks are made on the host
+    to keep the stream's order, and dropped) besides the embedding, final
+    norm and head; over ``sp`` every rank holds the same parameters.
 
     A batch group of one rank is one FSDP2 unit, the root: a unit per block
     would free no memory (its shard is the whole block) and overlap no
     communication (there is none), and each unit costs its hooks' host
-    time in every forward and backward."""
+    time in every forward and backward. FSDP2 averages the gradients over
+    the batch group (``group_device_mesh``'s dp dim spans dp and sp)."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     from torch.distributed.tensor import Shard
 
+    check_pipeline_mesh(mesh)
     device_mesh = group_device_mesh(mesh)
-    fsdp_mesh = _fsdp_mesh(mesh, device_mesh)
+    fsdp_mesh = _fsdp_mesh(device_mesh)
+    # Every rank makes every group, in this order.
+    batch_group = _group_of(mesh, ("dp", "fsdp", "sp"))
+    sp_group = _group_of(mesh, ("sp",))
+    pp_group = _group_of(mesh, ("pp",))
+    loss_group = (
+        batch_group if pp_group is None else _group_of(mesh, ("dp", "pp", "fsdp", "sp"))
+    )
     torch.manual_seed(seed)
     with torch.device("meta"):
         model = build_model(cfg, mesh)
     cfg = model.cfg  # with the mesh's attention bound
+    pp = mesh.shape["pp"] if mesh.process_rank is not None else 1
+    per_stage = cfg.num_layers // pp
+    first = mesh.process_coordinate()["pp"] * per_stage
+    if pp > 1:
+        model.layers = torch.nn.ModuleDict({
+            str(i): model.layers[str(i)] for i in range(first, first + per_stage)
+        })
     tp = mesh.shape["tp"]
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         raise ValueError(
@@ -399,10 +421,13 @@ def init_train_state(
         _place(module, prefix, plan, mesh, device_mesh)
         return module
 
-    unit_per_block = mesh.shape["dp"] * mesh.shape["fsdp"] > 1
+    unit_per_block = fsdp_mesh.size() > 1
     model.embed = made(torch.nn.Embedding(cfg.vocab_size, cfg.hidden_size), "embed.")
     for i in range(cfg.num_layers):
-        block = model.layers[i] = made(Block(cfg), f"layers.{i}.")
+        if not first <= i < first + per_stage:  # another stage's: the stream only
+            Block(cfg)
+            continue
+        block = model.layers[str(i)] = made(Block(cfg), f"layers.{i}.")
         if unit_per_block:
             shard(block, (
                 (f"layers.{i}.{n}", p) for n, p in block.named_parameters()
@@ -416,10 +441,10 @@ def init_train_state(
         (n, p) for n, p in model.named_parameters()
         if not (unit_per_block and n.startswith("layers."))
     ))
-    model.bind_model_parallel(*(
-        device_mesh.get_group(a) if mesh.shape[a] > 1 else None
-        for a in ("tp", "ep")
-    ))
+    model.bind_model_parallel(
+        *(device_mesh.get_group(a) if mesh.shape[a] > 1 else None for a in ("tp", "ep")),
+        sp_group=sp_group,
+    )
     # The losses read the head (and a pipeline the embedding) outside
     # forward: model.call gathers the root's parameters for them.
     register_fsdp_forward_method(model, "call")
@@ -429,39 +454,45 @@ def init_train_state(
         optimizer=default_optimizer(model.parameters()),
         mesh=mesh,
         device_mesh=device_mesh,
-        batch_group=_batch_group(mesh, device_mesh),
+        batch_group=batch_group,
+        loss_group=loss_group,
+        pp_group=pp_group,
     )
     return state, state_shardings(model, device_mesh)
 
 
 def _global_mean(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-    """The batch group's mean of the ranks' (scaled) losses: the batch's
-    loss."""
+    """The batch's loss from the ranks' (scaled) losses: summed over the
+    loss group (the batch group's ranks at every pp coordinate, where only
+    the last stage's is not zero) and divided by the batch group's
+    size."""
     import torch.distributed as dist
 
     loss = loss.detach().clone()
-    if state.batch_group is None:
-        return loss
-    dist.all_reduce(loss, group=state.batch_group)
-    return loss / dist.get_world_size(state.batch_group)
+    if state.loss_group is not None:
+        dist.all_reduce(loss, group=state.loss_group)
+    if state.batch_group is not None:
+        loss = loss / dist.get_world_size(state.batch_group)
+    return loss
 
 
 def _microbatches(
     state: TrainState, batch: Batch, accum_steps: int
 ) -> Iterable[Tuple[Batch, torch.Tensor]]:
-    """(this rank's rows of microbatch k, microbatch k's global token count)
-    for k < ``accum_steps``: microbatch k is the global rows
+    """(this rank's block of microbatch k, microbatch k's global token
+    count) for k < ``accum_steps``: microbatch k is the global rows
     ``k::accum_steps`` (JAX's interleaved split), so each rank's part of it
-    is its own rows ``k::accum_steps``."""
-    B = batch["inputs"].shape[0]
-    rows = batch_sharding(state.mesh, state.mesh.process_rank or 0, B)
+    is its own rows ``k::accum_steps``, at its own block of the sequence."""
+    rows, cols = batch_sharding(
+        state.mesh, state.mesh.process_rank or 0, tuple(batch["inputs"].shape)
+    )
     local = rows.stop - rows.start
     if local % accum_steps:
         raise ValueError(
             f"{local} rows a rank not divisible by accum_steps={accum_steps}"
         )
     for k in range(accum_steps):
-        part = {key: v[rows][k::accum_steps] for key, v in batch.items()}
+        part = {key: v[rows, cols][k::accum_steps] for key, v in batch.items()}
         denom = batch["mask"][k::accum_steps].float().sum().clamp_min(1.0)
         yield part, denom
 
@@ -484,6 +515,30 @@ def _rank_loss(
     return loss if group is None else loss * dist.get_world_size(group)
 
 
+def _reduce_replicas(state: TrainState) -> None:
+    """After the backward, the gradients of the parameters every pipeline
+    stage holds (the embedding, final norm and head) summed over the
+    ``pp`` subgroup, a stage that did not use one adding zeros: one
+    all-reduce of a flat fp32 buffer of the local shards. (FSDP2 has
+    averaged every gradient over dp, fsdp and sp.)"""
+    import torch.distributed as dist
+
+    if state.pp_group is None:
+        return
+    params = [
+        p for n, p in state.model.named_parameters() if not n.startswith("layers.")
+    ]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    locals_ = [p.grad.to_local() for p in params]
+    flat = torch.cat([g.reshape(-1) for g in locals_])
+    dist.all_reduce(flat, group=state.pp_group)
+    with torch.no_grad():
+        for g, part in zip(locals_, flat.split([g.numel() for g in locals_])):
+            g.copy_(part.view_as(g))
+
+
 def make_grad_step(
     state: TrainState,
     loss_fn: Optional[Callable[..., torch.Tensor]] = None,
@@ -502,31 +557,36 @@ def make_grad_step(
         ((part, denom),) = _microbatches(state, batch, 1)
         loss = _rank_loss(state, part, denom, loss_fn)
         loss.backward()
+        _reduce_replicas(state)
         grads = {name: p.grad for name, p in model.named_parameters()}
         return _global_mean(state, loss), grads
 
     return grad_step
 
 
-def _grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """The global norm of the gradients: the square root of the sum of the
-    squares over the whole tensors, from each rank's local shards summed
-    over the group's ranks, each shard's square weighted by one over the
-    number of ranks holding a copy of it (the dp ranks, and the ep and tp
-    ranks of a parameter the plan does not split: the norms, the
-    router)."""
+def _grad_norm(state: TrainState, params: Iterable[Tuple[str, Any]]) -> torch.Tensor:
+    """The global norm of the gradients of ``params`` (name, parameter):
+    the square root of the sum of the squares over the whole tensors, from
+    each rank's local shards summed over the group's ranks, each shard's
+    square weighted by one over the number of ranks holding a copy of it:
+    the dp and sp ranks, the ep and tp ranks of a parameter the plan does
+    not split (the norms, the router), and the pp ranks of a parameter
+    every stage holds (the embedding, final norm and head). Each element
+    counts once."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
 
     world = dist.get_world_size()
+    pp = state.mesh.shape["pp"] if state.mesh.process_rank is not None else 1
     sq = []
-    for g in grads:
-        shards = int(np.prod([
-            g.device_mesh.size(i) for i, p in enumerate(g.placements)
-            if isinstance(p, Shard)
-        ]))
+    for name, p in params:
+        g = p.grad
+        held = int(np.prod([
+            g.device_mesh.size(i) for i, pl in enumerate(g.placements)
+            if isinstance(pl, Shard)
+        ])) * (pp if name.startswith("layers.") else 1)
         s = torch.linalg.vector_norm(g.to_local(), dtype=torch.float32).square()
-        sq.append(s if shards == world else s * (shards / world))
+        sq.append(s if held == world else s * (held / world))
     total = torch.stack(sq).sum()
     dist.all_reduce(total)
     return total.sqrt()
@@ -554,14 +614,15 @@ def make_train_step(
             loss.backward()
             loss = _global_mean(state, loss)
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        params = [p for p in model.parameters() if p.grad is not None]
+        _reduce_replicas(state)
+        params = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             with torch.no_grad():
-                for p in params:
+                for _, p in params:
                     p.grad.mul_(inv)
             loss_sum = loss_sum * inv
-        grad_norm = _grad_norm(p.grad for p in params)
+        grad_norm = _grad_norm(state, params)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss_sum, "grad_norm": grad_norm}

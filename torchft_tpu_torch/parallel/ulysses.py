@@ -11,14 +11,22 @@ sequence-sharded to head-sharded and back::
 
 Each rank then runs ordinary attention over the whole sequence for its head
 subset, so the whole-sequence flash kernels apply unchanged. In JAX the ranks
-run in one SPMD program and ``jax.lax.all_to_all`` moves the pieces. Here
-:func:`make_ulysses_attention` runs the ranks' bodies one after another,
-each on its own device, and spells the tiled all-to-all out: after the first
-one rank ``i`` holds ``cat_j(shard_j.chunk(sp, dim=2)[i], dim=1)``, after
-the second rank ``j`` holds ``cat_i(out_i.chunk(sp, dim=1)[j], dim=2)``,
-each piece moved to the receiving rank's device with ``.to()`` (a no-op on a
-mesh that repeats one device). Both are differentiable; their transposes are
-the reverse re-shards, as in JAX.
+run in one SPMD program and ``jax.lax.all_to_all`` moves the pieces; the
+tiled all-to-all leaves rank ``i`` with ``cat_j(shard_j.chunk(sp,
+dim=2)[i], dim=1)`` after the first re-shard and rank ``j`` with
+``cat_i(out_i.chunk(sp, dim=1)[j], dim=2)`` after the second.
+:func:`make_ulysses_attention` runs them in one of two ways.
+
+- Over the ``sp`` ranks of a group of processes (the mesh's
+  ``process_rank`` set): each re-shard is one ``all_to_all_single`` over
+  the group's ``sp`` subgroup (:class:`_AllToAll`, whose backward is the
+  inverse all-to-all). gloo takes it for the card's tensors too (torch
+  2.11; ``chip_smoke.py`` phase 21 asks).
+- In one process that holds the whole mesh: the ranks' bodies run one
+  after another, each on its own device, each piece moved to the receiving
+  rank's device with ``.to()`` (a no-op on a mesh that repeats one
+  device). Both re-shards are differentiable; their transposes are the
+  reverse re-shards, as in JAX.
 
 GQA: k/v heads are repeated up to the smallest multiple that divides evenly
 over ``sp`` and divides the q-head count (:func:`_kv_expand_factor`), with
@@ -28,14 +36,13 @@ h // (Hq / Hkv) on every rank.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
 from torchft_tpu_torch.models.llama import dense_attention
 from torchft_tpu_torch.ops.flash_attention import flash_attention, supports
-from torchft_tpu_torch.parallel.mesh import Mesh
-from torchft_tpu_torch.parallel.sharding import SP_PP_ITEM
+from torchft_tpu_torch.parallel.mesh import Mesh, axis_group
 
 
 def _kv_expand_factor(h_q: int, h_kv: int, sp: int) -> int:
@@ -95,20 +102,75 @@ def _heads_to_seq(
     ]
 
 
-def make_ulysses_attention(mesh: Mesh, use_flash: Optional[bool] = None):
-    """Returns causal ``attn_fn(q, k, v)`` over [B, S, H, Dh]: the sequence split
-    over the mesh's ``sp`` devices, re-sharded to heads, attended, re-sharded
-    back and gathered on q's device. Differentiable. The all-to-all
-    counterpart of :func:`make_ring_attention`, with the same limits: the
-    batch is this rank's rows and the heads this rank's heads (dp, fsdp and
-    tp are process axes), and ``sp`` runs inside the process; sp above 1
-    inside a tensor-parallel group (tp above 1) raises, as the ring's."""
-    if mesh.shape["tp"] > 1 and mesh.shape["sp"] > 1:
-        raise NotImplementedError(
-            f"Ulysses attention over sp={mesh.shape['sp']} on a mesh with "
-            f"tp={mesh.shape['tp']}: sequence parallelism beside tensor "
-            f"parallelism across ranks is not ported ({SP_PP_ITEM})"
+def _all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group: Any) -> torch.Tensor:
+    """The tiled all-to-all over ``group``: ``x`` split into one chunk per
+    rank along ``split_dim``, chunk i sent to group rank i, and the chunks
+    received from every rank concatenated along ``cat_dim`` in rank
+    order."""
+    import torch.distributed as dist
+
+    send = torch.stack(x.chunk(dist.get_world_size(group), split_dim)).contiguous()
+    parts = torch.empty_like(send)
+    dist.all_to_all_single(parts, send, group=group)
+    return torch.cat(parts.unbind(0), dim=cat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`, differentiable: the backward is the inverse
+    all-to-all of the gradient (split ``cat_dim``, concatenate
+    ``split_dim``)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, split_dim: int, cat_dim: int, group: Any):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return _all_to_all(x, split_dim, cat_dim, group)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor):
+        split_dim, cat_dim = ctx.dims
+        return _all_to_all(grad, cat_dim, split_dim, ctx.group), None, None, None
+
+
+def _expand_kv(h_q: int, k: torch.Tensor, v: torch.Tensor, n: int):
+    """k and v with their heads repeated by :func:`_kv_expand_factor`;
+    raises where the q heads do not divide over ``n``."""
+    if h_q % n:
+        raise ValueError(
+            f"Ulysses needs heads ({h_q}) divisible by the sp axis ({n}); "
+            "use ring attention otherwise"
         )
+    r = _kv_expand_factor(h_q, k.shape[2], n)
+    if r > 1:
+        k = torch.repeat_interleave(k, r, dim=2)
+        v = torch.repeat_interleave(v, r, dim=2)
+    return k, v
+
+
+def make_ulysses_attention(mesh: Mesh, use_flash: Optional[bool] = None):
+    """Returns causal ``attn_fn(q, k, v)`` over [B, S, H, Dh]: the
+    all-to-all counterpart of :func:`make_ring_attention`. Differentiable.
+    The heads are this rank's heads (at tp above 1, its tp block: those
+    must divide over sp, after the kv heads' expansion) and the batch its
+    rows.
+
+    Over a group of processes (``mesh.process_rank`` set) with ``sp``
+    above 1, q, k and v are this rank's block of the sequence, re-sharded
+    over the group's ``sp`` subgroup (``parallel.mesh.axis_group``), and
+    the output is this rank's block. Otherwise the sequence is split over
+    the mesh's ``sp`` devices, re-sharded to heads, attended, re-sharded
+    back and gathered on q's device."""
+    if mesh.process_rank is not None and mesh.shape["sp"] > 1:
+
+        def ranks_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            import torch.distributed as dist
+
+            group = axis_group(mesh, ("sp",))
+            k, v = _expand_kv(q.shape[2], k, v, dist.get_world_size(group))
+            qh, kh, vh = (_AllToAll.apply(x, 2, 1, group) for x in (q, k, v))
+            out = ulysses_attention_shard(qh, kh, vh, use_flash=use_flash)
+            return _AllToAll.apply(out, 1, 2, group)
+
+        return ranks_fn
     devices = mesh.axis_devices("sp")
     n = len(devices)
 
@@ -119,21 +181,12 @@ def make_ulysses_attention(mesh: Mesh, use_flash: Optional[bool] = None):
                 use_flash=use_flash,
             )
             return out.to(q.device)
-        h_q, h_kv = q.shape[2], k.shape[2]
-        if h_q % n:
-            raise ValueError(
-                f"Ulysses needs heads ({h_q}) divisible by the sp axis ({n}); "
-                "use ring attention otherwise"
-            )
         if q.shape[1] % n or k.shape[1] % n:
             raise ValueError(
                 f"Ulysses attention: seq lens {q.shape[1]}, {k.shape[1]} not "
                 f"divisible by sp={n}"
             )
-        r = _kv_expand_factor(h_q, h_kv, n)
-        if r > 1:
-            k = torch.repeat_interleave(k, r, dim=2)
-            v = torch.repeat_interleave(v, r, dim=2)
+        k, v = _expand_kv(q.shape[2], k, v, n)
         shard = lambda x: [  # noqa: E731
             c.to(d) for c, d in zip(x.chunk(n, dim=1), devices)
         ]

@@ -182,7 +182,12 @@ class _Snapshot:
     and gradient of ``modules``, the state and hyperparameters of
     ``optimizers``, and the CPU and CUDA RNG states. :meth:`restore` puts
     them back, the tensors in place (FSDP2's parameters are views into its
-    own buffers)."""
+    own buffers).
+
+    FSDP2's units are resharded first: after a forward without gradients
+    (an eval step) the root's registered parameters are its unsharded
+    tensors, whose storage the counted step's backward frees. The copies
+    are of the sharded parameters the optimizer holds."""
 
     def __init__(self, keep: Iterable[Any]) -> None:
         import torch
@@ -190,6 +195,13 @@ class _Snapshot:
         keep = list(keep)
         modules = [m for m in keep if isinstance(m, torch.nn.Module)]
         optimizers = [o for o in keep if isinstance(o, torch.optim.Optimizer)]
+        if torch.distributed.is_available():
+            from torch.distributed.fsdp import FSDPModule
+
+            for m in modules:
+                for unit in m.modules():
+                    if isinstance(unit, FSDPModule):
+                        unit.reshard()
         clone = lambda v: (  # noqa: E731
             v.detach().clone() if isinstance(v, torch.Tensor) else v
         )

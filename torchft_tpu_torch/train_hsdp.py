@@ -6,13 +6,17 @@ torchrun launches them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; default
 one process; ``--device cuda`` takes the card ``LOCAL_RANK`` names). Their
 torch world rendezvouses at ``GROUP_INIT_METHOD``
 (``parallel.mesh.init_group``; ``MASTER_PORT`` is rank 0's Manager store).
-The group's mesh is ``auto_mesh(WORLD_SIZE)``, as the JAX trainer's is
-``auto_mesh(n_dev)``: ``dp`` and ``fsdp`` are process axes, over which the
-state is born sharded by FSDP2 (``parallel.train.init_train_state``) and
-each rank takes its rows of every step's global batch; ``sp`` and ``pp``
-are in-process axes (1 here). A size whose factoring needs ``tp`` or
-``sp`` across ranks (4 ranks: fsdp 2 x tp 2) raises, so groups are 1, 2
-or 3 ranks.
+The group's mesh is the JAX trainer's for that many devices
+(``parallel.mesh.group_mesh``): ``auto_mesh(WORLD_SIZE)`` for the dense
+models (2 ranks: fsdp 2; 4: fsdp 2 x tp 2; 8: fsdp 2 x tp 2 x sp 2),
+``make_mesh(pp=2, dp=n/2)`` for ``--model pipeline`` on an even world, ep
+2 for ``--model moe``. Every axis is a process axis: the state is born
+sharded over the ranks (``parallel.train.init_train_state``: FSDP2 over
+(dp, fsdp), the tensor-parallel plan over (ep, tp), replicated over sp, a
+pipeline stage's layers at each pp coordinate) and each rank takes its
+block of every step's global batch (its rows over (dp, fsdp), its sequence
+block over sp). ``--model moe`` where the mesh would need both ep and tp
+(6 ranks and up) raises before any rendezvous.
 
 Per step: ``manager.start_quorum()``, the grad step, the replica-axis
 gradient average (``ManagedMesh.allreduce_grads``, which delegates to
@@ -44,17 +48,19 @@ Two ranks a group on the CPU (gloo), each rank its own process::
     done
 
 ``--attn ring`` runs attention as ring attention over the mesh's ``sp``
-axis (``parallel/ring_attention.py``); on one device ``sp`` is 1, so each
-layer folds one block with the offset-block flash kernels, as the JAX
-trainer does on one chip. ``--attn ulysses`` runs the all-to-all mode
-(``parallel/ulysses.py``); at ``sp`` 1 each layer is one whole-sequence
-attention, the flash kernels from S >= 1024 (the Ulysses gate).
+axis (``parallel/ring_attention.py``); at ``sp`` 1 each layer folds one
+block with the offset-block flash kernels, as the JAX trainer does on one
+chip. ``--attn ulysses`` runs the all-to-all mode (``parallel/ulysses.py``);
+at ``sp`` 1 each layer is one whole-sequence attention, the flash kernels
+from S >= 1024 (the Ulysses gate). At ``sp`` above 1 the default and flash
+attention gather k and v over the ``sp`` ranks
+(``ring_attention.gathered_attention``).
 
 ``--model moe`` trains ``llama_moe_debug`` (4 experts, top-2, the router's
 aux loss in the loss); ``--model pipeline`` trains ``llama_debug`` with 4
 layers through the GPipe schedule (``parallel/pipeline.py``) in 2
-microbatches over the mesh's ``pp`` axis (1 on one device), as the JAX
-trainer builds them on one chip.
+microbatches over the mesh's ``pp`` axis: on an even world each rank holds
+and runs one stage, and a group of one rank runs the whole pipeline.
 
 ``--quantize`` (``--quantize-bits 4`` for int4) quantizes the replica-axis
 gradient allreduce: on CUDA gradients with the CUDA kernels of
@@ -151,6 +157,35 @@ def _parse(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def _gathered_state(cfg, mesh, params, optimizer) -> tuple:
+    """(parameters, AdamW state leaves) of the whole model as host numpy,
+    in the whole model's ``named_parameters`` order (each parameter's state
+    in sorted key order): each DTensor gathered over the group's
+    DeviceMesh, and over ``pp`` each stage's layers gathered from the rank
+    that holds them (``parallel.pipeline.gather_stages``). Collectives:
+    every rank calls it."""
+    import torch
+
+    from torchft_tpu_torch.models.llama import Transformer
+    from torchft_tpu_torch.parallel.pipeline import gather_stages
+
+    full = {}
+    for name, p in params.items():
+        full[name] = p.detach().full_tensor()
+        for key, v in sorted(optimizer.state[p].items()):
+            full[f"{name}/{key}"] = (v.full_tensor() if v.dim() else v).to(full[name].device)
+    if mesh.shape["pp"] > 1:
+        full = gather_stages(full, mesh, cfg.num_layers)
+    with torch.device("meta"):
+        whole = Transformer(dataclasses.replace(cfg, attn_impl="dense", attn_fn=None))
+    names = [n for n, _ in whole.named_parameters()]
+    state = {n: sorted(k for k in full if k.startswith(n + "/")) for n in names}
+    return (
+        [full[n].cpu().numpy() for n in names],
+        [full[k].cpu().numpy() for n in names for k in state[n]],
+    )
+
+
 def main(argv=None) -> int:
     args = _parse(argv)
     logging.basicConfig(level=logging.INFO)
@@ -232,9 +267,12 @@ def main(argv=None) -> int:
                 "targets": torch.roll(probe, -1, 1),
                 "mask": torch.ones((B, S), dtype=torch.int32, device=device),
             },
-            # This rank's rows: the batch splits over (dp, fsdp); the ep
-            # and tp ranks of one row block each count their own shards.
-            tokens_per_step=B * S // (mesh.shape["dp"] * mesh.shape["fsdp"]),
+            # This rank's tokens: the batch splits over (dp, fsdp) and the
+            # sequence over sp; the ep and tp ranks of one block each count
+            # their own shards, the pp ranks their own stage.
+            tokens_per_step=B * S // (
+                mesh.shape["dp"] * mesh.shape["fsdp"] * mesh.shape["sp"]
+            ),
             preserve=(model, optimizer),
         )
 
@@ -409,15 +447,8 @@ def main(argv=None) -> int:
         if args.result_dir:
             os.makedirs(args.result_dir, exist_ok=True)
             # The gathered full parameters and AdamW state (collectives:
-            # every rank), in named_parameters order.
-            host = [
-                p.detach().full_tensor().cpu().numpy() for p in params.values()
-            ]
-            opt_host = [
-                (v.full_tensor() if v.dim() else v).cpu().numpy()
-                for p in params.values()
-                for _, v in sorted(optimizer.state[p].items())
-            ]
+            # every rank), in the whole model's named_parameters order.
+            host, opt_host = _gathered_state(cfg, mesh, params, optimizer)
             # Steady-state steps only: the first committed step of a process
             # also pays one-time set-up (kernel build and load, allocator).
             steady = step_ms[1:] or step_ms

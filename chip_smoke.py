@@ -225,7 +225,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    it is and stages point-to-point through the host where gloo carries
    the card's tensors, chosen by the group's backend, never by the answer;
    the send aborts its process, which is why the cases' ranks never make
-   it). Prints its wall time, under ``TP_EP_BUDGET_S``.
+   it). Beside both, a world of eight such ranks runs llama_moe_debug at
+   the JAX trainer's MoE mesh for eight devices, fsdp 2 x ep 2 x tp 2
+   (``MOE_EP_TP_MESH``: the experts over ep, each expert's FFN over tp
+   and fsdp, the attention over tp; B=8, S=64), two steps in fp32 and
+   bf16 against one rank's, to ``TP_FP32`` / ``TP_BF16`` and
+   ``adamw_excess``; its planted fault (each rank takes its first expert
+   from its tp rank, not its ep rank) must fail both bars. Prints both
+   worlds' walls and the phase's, under ``TP_EP_BUDGET_S``.
 22. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
    pg-sharded, preemption and orchestration drills', phase 17's, the
    bench's and phase 21's launches too, the block rows phase 21's, the
@@ -2894,6 +2901,12 @@ def adamw_excess(got, want, g_got, g_want) -> float:
 TP_EP_CASES = [(family, dtype, axis)
                for family, axis in (("dense", "tp"), ("moe", "ep"))
                for dtype in ("float32", "bfloat16")]
+# The JAX trainer's MoE mesh for eight devices (train_hsdp.py: fsdp 2 x ep
+# 2 x tp 2; group_mesh(8, ..., "moe")) and its cases: llama_moe_debug in
+# fp32 and bf16, in a world of eight ranks of its own.
+MOE_EP_TP_MESH = {"fsdp": 2, "ep": 2, "tp": 2}
+MOE_EP_TP_AXIS = " x ".join(f"{a} {n}" for a, n in MOE_EP_TP_MESH.items())
+MOE_EP_TP_CASES = [("moe", dtype, MOE_EP_TP_AXIS) for dtype in ("float32", "bfloat16")]
 # Sequence and pipeline parallelism across the two ranks: the dense model
 # at sp 2 with the default attention (the flash setting on the card: k and
 # v gathered, the blocks folded by the offset-block kernels), ring and
@@ -2906,9 +2919,12 @@ SP_PP_CASES = [(family, dtype, axis)
 # must fail the loss and the gradient bars. dense: every wo's two tp
 # shards swapped; default and Ulysses: rank 1's RoPE positions start at 0;
 # ring: a hop that moves no block (each rank folds its own twice);
-# pipeline: stage 0 sends zeros for its last microbatch.
+# pipeline: stage 0 sends zeros for its last microbatch; the MoE model at
+# ep x tp: each rank takes its first expert from its tp rank, not its ep
+# rank. The tp and the ep x tp faults must fail both bars.
 PLANTED_FAULTS = {
     "dense": "wo's tp shards swapped",
+    f"moe {MOE_EP_TP_AXIS}": "the first expert from the tp rank",
     "default": "RoPE offset 0 on rank 1",
     "ulysses": "RoPE offset 0 on rank 1",
     "ring": "a ring hop that skips a block",
@@ -2923,7 +2939,12 @@ TP_EP_BUDGET_S = 150.0
 
 
 def case_name(family: str, dtype: str, axis: str) -> str:
-    return f"{family} {dtype} {axis}=2"
+    return f"{family} {dtype} {axis}" if axis == MOE_EP_TP_AXIS else f"{family} {dtype} {axis}=2"
+
+
+def fault_key(family: str, axis: str) -> str:
+    """The case's key in ``PLANTED_FAULTS`` (absent: no planted fault)."""
+    return f"{family} {axis}" if axis == MOE_EP_TP_AXIS else family
 
 
 def case_bars(family: str, dtype: str) -> dict:
@@ -2959,13 +2980,19 @@ def gather_full(t):
 
 
 def plant_fault(family: str, rank: int):
-    """Installs ``family``'s planted fault (``PLANTED_FAULTS``) in this
-    rank's process; returns the function that removes it."""
+    """Installs the planted fault (``PLANTED_FAULTS``) of the case whose
+    :func:`fault_key` is ``family`` in this rank's process; returns the
+    function that removes it."""
     import torch
+    import torch.distributed as dist
 
-    from torchft_tpu_torch.models.llama import Transformer
+    from torchft_tpu_torch.models.llama import MoEMLP, Transformer
     from torchft_tpu_torch.parallel import pipeline, ring_attention
 
+    if family == f"moe {MOE_EP_TP_AXIS}":
+        saved = MoEMLP.first_expert
+        MoEMLP.first_expert = lambda self, n: n * dist.get_rank(self.tp_group)
+        return lambda: setattr(MoEMLP, "first_expert", saved)
     if family in ("default", "ulysses"):
         saved = Transformer.sequence_offset
         Transformer.sequence_offset = lambda self, n: 0
@@ -3022,12 +3049,24 @@ def gloo_answers(dev) -> dict:
     return out
 
 
+def case_mesh(axis: str, world: int, rank: int, dev):
+    """The mesh of a case, as seen by ``rank`` of a world of ``world``:
+    ``make_mesh(<axis>=2)``, or ``MOE_EP_TP_MESH``."""
+    from torchft_tpu_torch.parallel import make_mesh
+
+    axes = MOE_EP_TP_MESH if axis == MOE_EP_TP_AXIS else {axis: 2}
+    mesh = make_mesh(**axes, devices=[dev] * world)
+    mesh.process_rank = rank
+    return mesh
+
+
 def tp_ep_rank(spec: dict) -> None:
-    """One rank of phase 21's two-rank world (``spec``: rank, init, device,
-    model, out, cases). Joins a gloo world that carries the device's
-    tensors (NCCL refuses two ranks on one card) before ``init_group``,
-    which then returns at once; per case: ``init_train_state`` at the
-    case's mesh and two steps (``make_train_step``; the pipeline's
+    """One rank of one of phase 21's worlds (``spec``: rank, world, init,
+    device, model, out, cases). Joins a gloo world that carries the
+    device's tensors (NCCL refuses two ranks on one card) before
+    ``init_group``, which then returns at once; per case:
+    ``init_train_state`` at the case's mesh (:func:`case_mesh`) and two
+    steps (``make_train_step``; the pipeline's
     ``make_grad_step`` with ``make_pipeline_loss`` and an AdamW step),
     counting the flash and block kernels' launches; each family's planted
     fault in fp32 on one step, from the same state's first parameters
@@ -3057,28 +3096,29 @@ def tp_ep_rank(spec: dict) -> None:
 
     from datetime import timedelta
 
-    rank, dev = spec["rank"], torch.device(spec["device"])
-    os.environ.update(RANK=str(rank), WORLD_SIZE="2")
+    rank, world, dev = spec["rank"], spec["world"], torch.device(spec["device"])
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     # A collective that never completes fails at the timeout, with its
     # traceback in the rank's log, inside the phase's budget.
     dist.init_process_group(
         "cpu:gloo,cuda:gloo" if dev.type == "cuda" else "gloo",
-        init_method=spec["init"], rank=rank, world_size=2,
+        init_method=spec["init"], rank=rank, world_size=world,
         timeout=timedelta(seconds=60),
     )
     init_group(dev)
-    # The collectives the plan's sums and the checks' gathers run, on the
-    # device's tensors: each must be taken and give the exact sums.
+    # The collectives the plan's sums, FSDP2 and the checks' gathers run,
+    # on the device's tensors: each must be taken and give the exact sums.
+    total = world * (world + 1) / 2
     one = torch.full((4,), float(rank + 1), device=dev)
     dist.all_reduce(one)
-    both = one.new_empty(8)
-    dist.all_gather_into_tensor(both, one)
-    half = one.new_empty(4)
-    dist.reduce_scatter_tensor(half, both)
-    if not (one.eq(3).all() and both.eq(3).all() and half.eq(6).all()):
-        raise AssertionError(f"gloo collectives on {dev}: {one}, {both}, {half}")
+    every = one.new_empty(4 * world)
+    dist.all_gather_into_tensor(every, one)
+    part = one.new_empty(4)
+    dist.reduce_scatter_tensor(part, every)
+    if not (one.eq(total).all() and every.eq(total).all() and part.eq(world * total).all()):
+        raise AssertionError(f"gloo collectives on {dev}: {one}, {every}, {part}")
     print(f"rank {rank}: all_reduce, all_gather_into_tensor and "
           f"reduce_scatter_tensor exact on {dev}", flush=True)
     small = spec["model"] == "small"
@@ -3187,8 +3227,7 @@ def tp_ep_rank(spec: dict) -> None:
             cfg = case_cfg(family, dtype)
             shape = shapes["moe" if family == "moe" else "dense"]
             b1, b2 = (batch(shape, k, cfg.vocab_size) for k in (0, 1))
-            mesh = make_mesh(**{axis: 2}, devices=[dev] * 2)
-            mesh.process_rank = rank
+            mesh = case_mesh(axis, world, rank, dev)
             for k in flash_attention.LAUNCHES:
                 flash_attention.LAUNCHES[k] = 0
             sync()
@@ -3199,8 +3238,9 @@ def tp_ep_rank(spec: dict) -> None:
             step_s = time.perf_counter() - t0
             out["launches"][name] = {k: flash_attention.LAUNCHES[k] for k in kernels}
             fault = None
-            if family in PLANTED_FAULTS and (family == "dense" or dtype == "float32"):
-                undo = plant_fault(family, rank) if family != "dense" else (lambda: None)
+            planted = fault_key(family, axis)
+            if planted in PLANTED_FAULTS and (family == "dense" or dtype == "float32"):
+                undo = plant_fault(planted, rank) if family != "dense" else (lambda: None)
                 try:
                     fl, fg, _ = run((b1,), fault=True)
                 finally:
@@ -3261,28 +3301,30 @@ def gloo_probe_rank(spec: dict) -> None:
 
 
 def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float = 240.0,
-                cases=tuple(TP_EP_CASES)) -> dict:
+                cases=tuple(TP_EP_CASES), moe_cases=()) -> dict:
     """Phase 21's check (on the CPU: its rehearsal at llama_debug's size)
-    over ``cases``: the two ranks of :func:`tp_ep_rank` as processes of
-    their own, then each case's differences held to its bars: the loss
-    (both steps) and the first step's gradients in fp32 to ``TP_FP32``,
-    bf16 to ``TP_BF16``, the pipeline bit for bit (``PP_BARS``); every
-    case's parameters after the first AdamW step to the bound of
-    ``adamw_excess``, every element; each family's planted fault must
-    exceed its loss or gradient bar (the tp fault both); the MoE router's
-    gradient must be
-    nonzero; and on the card (llama_small), the flash kernels must launch
-    in both ranks of the dense cases at tp 2, Ulysses' and the pipeline's,
-    the block kernels in the default and ring cases at sp 2; both ranks
-    must exit 0. Returns the cases' differences, bars, losses and
-    launches, and the answers of the probe pair (:func:`gloo_probe_rank`,
-    run beside the cases; a probe rank that died leaves none: that is its
+    over ``cases`` in a world of two ranks of :func:`tp_ep_rank` and
+    ``moe_cases`` (``MOE_EP_TP_CASES``) in a world of eight beside it,
+    each rank a process of its own; then each case's differences held to
+    its bars: the loss (both steps) and the first step's gradients in fp32
+    to ``TP_FP32``, bf16 to ``TP_BF16``, the pipeline bit for bit
+    (``PP_BARS``); every case's parameters after the first AdamW step to
+    the bound of ``adamw_excess``, every element; each planted fault must
+    exceed its loss or gradient bar (the tp and the ep x tp faults both);
+    the MoE router's gradient must be nonzero; and on the card
+    (llama_small), the flash kernels must launch in both ranks of the
+    dense cases at tp 2, Ulysses' and the pipeline's, the block kernels in
+    the default and ring cases at sp 2; every rank must exit 0. Returns
+    the cases' differences, bars, losses and launches, each world's wall,
+    and the answers of the probe pair (:func:`gloo_probe_rank`, run beside
+    the two-rank world; a probe rank that died leaves none: that is its
     answer)."""
     import shutil
     import socket
     import tempfile
 
-    cases = [tuple(c) for c in cases]
+    n_moe = math.prod(MOE_EP_TP_MESH.values())
+    worlds = {n: [tuple(c) for c in cs] for n, cs in ((2, cases), (n_moe, moe_cases)) if cs}
     work = Path(tempfile.mkdtemp(prefix="tp_ep_", dir=REPO / "build"
                                  if (REPO / "build").is_dir() else None))
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONUNBUFFERED": "1",
@@ -3300,38 +3342,56 @@ def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float =
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env,
         ), log
 
-    def logs(prefix: str) -> str:
-        return "\n".join(f"{prefix}{i}: " + (work / f"{prefix}{i}.log").read_text()[-3000:]
-                         for i in (0, 1))
+    def logs(world: int) -> str:
+        tail = 3000 if world == 2 else 1200
+        return "\n".join(f"world {world} rank {r}: "
+                         + (work / f"w{world}rank{r}.log").read_text()[-tail:]
+                         for r in range(world))
 
-    procs, probes = [], []
-    answers = {}
+    def free_ports(n: int) -> list:
+        socks = [socket.socket() for _ in range(n)]
+        try:
+            for sock in socks:
+                sock.bind(("localhost", 0))
+            return [f"tcp://localhost:{sock.getsockname()[1]}" for sock in socks]
+        finally:
+            for sock in socks:
+                sock.close()
+
+    procs, probes = {}, []
+    answers, walls = {}, {}
     try:
-        with socket.socket() as one, socket.socket() as two:
-            one.bind(("localhost", 0))
-            two.bind(("localhost", 0))
-            init, probe_init = [f"tcp://localhost:{sock.getsockname()[1]}"
-                                for sock in (one, two)]
-        for rank in (0, 1):
-            procs.append(start("tp_ep_rank", f"rank{rank}", {
-                "rank": rank, "init": init, "device": device, "model": model,
-                "out": str(work), "cases": cases,
-            }))
+        inits = free_ports(len(worlds) + 1)
+        t0 = time.monotonic()
+        for (world, world_cases), init in zip(worlds.items(), inits):
+            (work / f"w{world}").mkdir()
+            for rank in range(world):
+                procs[(world, rank)] = start("tp_ep_rank", f"w{world}rank{rank}", {
+                    "rank": rank, "world": world, "init": init, "device": device,
+                    "model": model, "out": str(work / f"w{world}"), "cases": world_cases,
+                })
         # The probe pair runs beside the cases, in a world of its own.
         for rank in (0, 1):
             probes.append(start("gloo_probe_rank", f"probe{rank}", {
-                "rank": rank, "init": probe_init, "device": device, "out": str(work),
+                "rank": rank, "init": inits[-1], "device": device, "out": str(work),
             }))
-        deadline = time.monotonic() + timeout_s
-        for r, (proc, _) in enumerate(procs):
-            try:
-                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"phase 21: rank {r} still running after "
-                                     f"{timeout_s:g} s:\n" + logs("rank")) from None
-            if rc != 0:
-                raise AssertionError(f"phase 21: rank {r} exited {rc}:\n" + logs("rank"))
-        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in (0, 1)]
+        deadline = t0 + timeout_s
+        ended = {}
+        while len(ended) < len(procs):
+            for key, (proc, _) in procs.items():
+                if key not in ended and proc.poll() is not None:
+                    ended[key] = time.monotonic()
+                    if proc.returncode != 0:
+                        raise AssertionError(f"phase 21: world {key[0]} rank {key[1]} "
+                                             f"exited {proc.returncode}:\n" + logs(key[0]))
+            if time.monotonic() > deadline:
+                late = sorted(set(procs) - set(ended))
+                raise AssertionError(f"phase 21: {late} still running after "
+                                     f"{timeout_s:g} s:\n" + logs(late[0][0]))
+            time.sleep(0.1)
+        walls = {world: max(ended[(world, r)] for r in range(world)) - t0 for world in worlds}
+        ranks = {world: [json.loads((work / f"w{world}" / f"rank{r}.json").read_text())
+                         for r in range(world)] for world in worlds}
         for r, (proc, _) in enumerate(probes):
             try:
                 rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
@@ -3347,56 +3407,64 @@ def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float =
                               f"({'still running' if rc is None else f'exit {rc}'}): "
                               + " | ".join(said[-4:])[-600:]}
     finally:
-        for proc, log in procs + probes:
+        for proc, log in list(procs.values()) + probes:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
         shutil.rmtree(work, ignore_errors=True)
-    result = {"cases": {}, "gloo": answers, "launches": {
-        k: sum(r["launches"][n][k] for r in ranks for n in r["launches"])
+    result = {"cases": {}, "gloo": answers, "world_wall_s": walls, "launches": {
+        k: sum(r["launches"][n][k] for rs in ranks.values() for r in rs for n in r["launches"])
         for k in FLASH_KERNELS + BLOCK_KERNELS
     }}
     print(f"gloo on {device} (a cpu:gloo,cuda:gloo world): " + json.dumps(answers), flush=True)
+    print("phase 21 worlds' walls: " + ", ".join(
+        f"{world} ranks {wall:.1f} s" for world, wall in walls.items()), flush=True)
     failed = []
-    for family, dtype, axis in cases:
-        name = case_name(family, dtype, axis)
-        d = ranks[0]["diff"][name]
-        bar = case_bars(family, dtype)
-        launches = [r["launches"][name] for r in ranks]
-        result["cases"][name] = {**d, "bar": bar, "launches": launches,
-                                 "loss_pair": ranks[0]["loss"][name]}
-        print(f"{name}: loss {d['loss']:.3g} (bar {bar['loss']:.3g}), worst "
-              f"gradient {d['grad']:.3g} of its leaf's largest (bar {bar['grad']:.3g})"
-              + f", AdamW excess {d['adamw_excess']:.3g}"
-              + (f", planted fault ({PLANTED_FAULTS[family]}): loss {d['fault_loss']:.3g}, "
-                 f"gradient {d['fault_grad']:.3g}" if d["fault_grad"] is not None else "")
-              + (f", router gradient L1 {d['router_grad_l1']:.4g}" if family == "moe" else "")
-              + f", first step {d['first_step_s']:.2f} s; losses {ranks[0]['loss'][name]}"
-              f"; launches per rank {launches}",
-              flush=True)
-        if d["loss"] > bar["loss"] or d["grad"] > bar["grad"]:
-            failed.append(f"{name} past its bars: {d} vs {bar}")
-        if d["adamw_excess"] > 0:
-            failed.append(f"{name} parameters past the AdamW bound: {d}")
-        if d["fault_grad"] is not None:
-            past = (d["fault_loss"] > bar["loss"], d["fault_grad"] > bar["grad"])
-            # The tp fault must fail both bars (PERF.md §6); the others
-            # must fail the case's check, which one bar past does.
-            if not (all(past) if family == "dense" else any(past)):
-                failed.append(
-                    f"{name}: the planted fault ({PLANTED_FAULTS[family]}) passes "
-                    f"the bars (loss {d['fault_loss']:.3g}, gradient "
-                    f"{d['fault_grad']:.3g}; bars {bar})"
-                )
-        if family in PLANTED_FAULTS and dtype == "float32" and d["fault_grad"] is None:
-            failed.append(f"{name}: no planted fault ran")
-        if family == "moe" and not d["router_grad_l1"] > 0:
-            failed.append(f"{name}: router gradient {d['router_grad_l1']}")
-        if model == "small" and family != "moe":
-            want = BLOCK_KERNELS if family in ("default", "ring") else FLASH_KERNELS
-            if not all(r[k] > 0 for r in launches for k in want):
-                failed.append(f"{name}: a kernel of {want} did not launch: {launches}")
+    for world, world_cases in worlds.items():
+        for family, dtype, axis in world_cases:
+            name = case_name(family, dtype, axis)
+            d = ranks[world][0]["diff"][name]
+            bar = case_bars(family, dtype)
+            launches = [r["launches"][name] for r in ranks[world]]
+            planted = fault_key(family, axis)
+            result["cases"][name] = {**d, "bar": bar, "launches": launches, "world": world,
+                                     "loss_pair": ranks[world][0]["loss"][name]}
+            print(f"{name} ({world} ranks): loss {d['loss']:.3g} (bar {bar['loss']:.3g}), "
+                  f"worst gradient {d['grad']:.3g} of its leaf's largest (bar "
+                  f"{bar['grad']:.3g}), AdamW excess {d['adamw_excess']:.3g}"
+                  + (f", planted fault ({PLANTED_FAULTS[planted]}): loss "
+                     f"{d['fault_loss']:.3g}, gradient {d['fault_grad']:.3g}"
+                     if d["fault_grad"] is not None else "")
+                  + (f", router gradient L1 {d['router_grad_l1']:.4g}" if family == "moe" else "")
+                  + f", first step {d['first_step_s']:.2f} s; losses "
+                  f"{ranks[world][0]['loss'][name]}; launches per rank "
+                  + (f"{launches}" if world == 2 else f"{launches[0]} (rank 0)"),
+                  flush=True)
+            if d["loss"] > bar["loss"] or d["grad"] > bar["grad"]:
+                failed.append(f"{name} past its bars: {d} vs {bar}")
+            if d["adamw_excess"] > 0:
+                failed.append(f"{name} parameters past the AdamW bound: {d}")
+            if d["fault_grad"] is not None:
+                past = (d["fault_loss"] > bar["loss"], d["fault_grad"] > bar["grad"])
+                # The tp and ep x tp faults must fail both bars (PERF.md
+                # §6); the others must fail the case's check, which one bar
+                # past does.
+                both = family == "dense" or axis == MOE_EP_TP_AXIS
+                if not (all(past) if both else any(past)):
+                    failed.append(
+                        f"{name}: the planted fault ({PLANTED_FAULTS[planted]}) passes "
+                        f"the bars (loss {d['fault_loss']:.3g}, gradient "
+                        f"{d['fault_grad']:.3g}; bars {bar})"
+                    )
+            if planted in PLANTED_FAULTS and dtype == "float32" and d["fault_grad"] is None:
+                failed.append(f"{name}: no planted fault ran")
+            if family == "moe" and not d["router_grad_l1"] > 0:
+                failed.append(f"{name}: router gradient {d['router_grad_l1']}")
+            if model == "small" and family != "moe":
+                want = BLOCK_KERNELS if family in ("default", "ring") else FLASH_KERNELS
+                if not all(r[k] > 0 for r in launches for k in want):
+                    failed.append(f"{name}: a kernel of {want} did not launch: {launches}")
     if failed:
         raise AssertionError("phase 21: " + "; ".join(failed))
     return result
@@ -3404,11 +3472,12 @@ def tp_ep_check(device: str = "cuda:0", model: str = "small", timeout_s: float =
 
 def tp_ep_phase() -> dict:
     """Phase 21 on the card: :func:`tp_ep_check` at llama_small's full
-    width over ``TP_EP_CASES`` and ``SP_PP_CASES`` in one world; prints the
-    wall time, which must stay under ``TP_EP_BUDGET_S``."""
+    width over ``TP_EP_CASES`` and ``SP_PP_CASES`` in a world of two ranks
+    and ``MOE_EP_TP_CASES`` in a world of eight beside it; prints the wall
+    time, which must stay under ``TP_EP_BUDGET_S``."""
     t0 = time.perf_counter()
     result = tp_ep_check("cuda:0", "small", timeout_s=TP_EP_BUDGET_S + 60,
-                         cases=TP_EP_CASES + SP_PP_CASES)
+                         cases=TP_EP_CASES + SP_PP_CASES, moe_cases=MOE_EP_TP_CASES)
     result["wall_s"] = time.perf_counter() - t0
     (OUT / "tp_ep.json").write_text(json.dumps(result, indent=1))
     print(f"tp/ep/sp/pp ok in {result['wall_s']:.1f} s (budget {TP_EP_BUDGET_S:g} s); "

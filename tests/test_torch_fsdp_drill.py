@@ -12,8 +12,8 @@ resumes every rank from its own snapshot. Groups of four ranks run the JAX
 trainer's auto_mesh(4), fsdp 2 x tp 2, through the same kill and heal, the
 MoE model in groups of two runs at ep 2, and the pipeline in groups of two
 at pp 2 (its stages on the two ranks) ends equal to one-rank groups bit for
-bit. Also the trainer's refusal of an MoE group whose mesh needs both ep
-and tp."""
+bit. Also the trainer's refusal of an MoE group whose mesh does not split
+the model (6 ranks: ep 2 x tp 3), and the JAX trainer's of the same mesh."""
 
 import json
 import math
@@ -183,17 +183,40 @@ def test_pipeline_in_groups_of_two_ranks_kill_heal_equal_one_rank_bit_for_bit(
 
 @pytest.mark.timeout(120)
 def test_trainer_refuses_a_group_whose_factoring_needs_tp(tmp_path):
-    """``--model moe`` at 8 ranks would place the experts over ep 2 and
-    tp 2: the trainer raises its named error before any rendezvous or
-    quorum. (8 dense ranks are the JAX trainer's fsdp 2 x tp 2 x sp 2.)"""
+    """``--model moe`` at 6 ranks factors as the JAX trainer's ep 2 x tp 3,
+    which llama_moe_debug does not split (4 q and 2 kv heads, vocab 256,
+    over tp 3): the trainer raises a ``ValueError`` naming the heads and
+    the axis before any rendezvous or quorum. (8 MoE ranks are fsdp 2 x ep
+    2 x tp 2, ``tests/test_torch_moe_ep_tp_drill.py``.)"""
     proc = subprocess.run(
         [sys.executable, "-m", "torchft_tpu_torch.train_hsdp", "--device", "cpu",
          "--model", "moe"],
-        env={"RANK": "0", "WORLD_SIZE": "8",
+        env={"RANK": "0", "WORLD_SIZE": "6",
              "PYTHONPATH": str(Path(__file__).resolve().parents[1])},
         capture_output=True, text=True, timeout=100,
     )
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr, proc.stderr[-2000:]
-    assert "experts placed over both ep and tp" in proc.stderr, proc.stderr[-2000:]
+    assert "ValueError: 4 q and 2 kv heads do not split over tp=3" in proc.stderr, (
+        proc.stderr[-2000:]
+    )
     assert "GROUP_INIT_METHOD" not in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.timeout(120)
+def test_jax_trainer_refuses_the_same_moe_mesh():
+    """The JAX twin of the refusal above: its ``init_train_state`` refuses
+    llama_moe_debug at ``make_mesh(ep=2, tp=3)`` (the embedding's vocab of
+    256 does not split over tp 3)."""
+    import jax
+    import jax.numpy as jnp
+
+    from torchft_tpu.models.llama import llama_moe_debug
+    from torchft_tpu.parallel import make_mesh
+    from torchft_tpu.parallel import train as jtrain
+
+    cfg = llama_moe_debug(dtype=jnp.float32)
+    mesh = make_mesh(ep=2, tp=3)
+    with pytest.raises(ValueError, match="divisible by 3"):
+        jtrain.init_train_state(
+            jtrain.build_model(cfg, mesh), mesh, jax.random.PRNGKey(0), (8, 64)
+        )

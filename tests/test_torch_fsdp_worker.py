@@ -302,7 +302,9 @@ def _sp_pp_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
     step), the 4-layer llama_debug at ``make_mesh(pp=2)`` (gradients and
     one AdamW step, 2 microbatches) and the heal's keys over sp and pp; at
     world 8 llama_debug at ``auto_mesh(8)``, fsdp 2 x tp 2 x sp 2, with the
-    default attention, ring and Ulysses (gradients)."""
+    default attention, ring and Ulysses (gradients), and llama_moe_debug at
+    the JAX trainer's MoE mesh for eight devices, fsdp 2 x ep 2 x tp 2
+    (:func:`_moe_ep_tp_case`)."""
     import torch
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -348,6 +350,7 @@ def _sp_pp_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
             state.device_mesh, (Replicate(), Shard(0), Shard(1)),
         )
         out["heal/keys"] = np.array(repr(split_state_sharded({"w": leaf})[0]["w"].keys))
+        out.update(_moe_ep_tp_case(inputs, rank, world))
         return out
 
     mesh = make_mesh(sp=2, devices=[cpu] * 2)
@@ -387,6 +390,79 @@ def _sp_pp_cases(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
         ref.keys == [tuple(("s", None, None, None) for _ in ref.global_shape)]
         for ref in meta.values()
     ))
+    return out
+
+
+def _moe_ep_tp_case(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """llama_moe_debug at ``group_mesh(8, rank, cpu, "moe")``, fsdp 2 x ep
+    2 x tp 2: the gradients, with the sha of every MoE layer's router input
+    on this rank; one train step (its loss, global gradient norm, and the
+    norm of the gathered gradients computed here, which pins the norm's
+    weighting of the ep-replicated attention), its parameters and
+    gradients; and the heal's keys for an expert-like [4, 8, 16] leaf over
+    (ep, fsdp, tp), dims 0, 1, 2, and an attention-like [8, 16] leaf
+    sharded over tp and fsdp, replicated over ep."""
+    import hashlib
+
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from torchft_tpu_torch.checkpointing.sharded import split_state_sharded
+    from torchft_tpu_torch.models import llama_moe_debug
+    from torchft_tpu_torch.models.llama import MoEMLP
+    from torchft_tpu_torch.parallel import init_train_state, make_train_step
+    from torchft_tpu_torch.parallel.mesh import group_mesh
+    from torchft_tpu_torch.parallel.train import make_grad_step
+
+    cpu = torch.device("cpu")
+    out: Dict[str, np.ndarray] = {}
+    batch = _batch(inputs)
+    cfg = llama_moe_debug(dtype=torch.float32)
+    params = _params(inputs, "moe/")
+    mesh = group_mesh(world, rank, cpu, "moe")
+
+    def state_of():
+        state, _ = init_train_state(cfg, mesh, cpu, seed=0)
+        _load_full(state.model, params)
+        return state
+
+    state = state_of()
+    shas = []
+    for m in state.model.modules():
+        if isinstance(m, MoEMLP):
+            m.register_forward_pre_hook(lambda _, args: shas.append(
+                hashlib.sha256(args[0].detach().contiguous().numpy().tobytes()).hexdigest()
+            ))
+    loss, grads = make_grad_step(state)(batch)
+    out["moe/loss"] = np.asarray(float(loss))
+    out["moe/mesh"] = np.array(repr(mesh.shape))
+    out["moe/router_sha"] = np.array(repr(shas))
+    for name, g in grads.items():
+        out[f"moe/grad/{name}"] = _full(g)
+
+    state = state_of()
+    state, metrics = make_train_step(state)(state, batch)
+    out["moe_train/loss"] = metrics["loss"].numpy()
+    out["moe_train/grad_norm"] = metrics["grad_norm"].numpy()
+    gathered = 0.0
+    for name, p in state.model.named_parameters():
+        out[f"moe_train/param/{name}"] = _full(p)
+        out[f"moe_train/grad/{name}"] = g = _full(p.grad)
+        gathered += float(np.square(g.astype(np.float64)).sum())
+    out["moe_train/grad_norm_gathered"] = np.asarray(gathered ** 0.5)
+
+    c = mesh.process_coordinate()
+    full = torch.arange(512, dtype=torch.float32).reshape(4, 8, 16)
+    experts = DTensor.from_local(
+        full.chunk(2, 0)[c["ep"]].chunk(2, 1)[c["fsdp"]].chunk(2, 2)[c["tp"]].clone(),
+        state.device_mesh, (Shard(1), Shard(0), Shard(2)),
+    )
+    attn = DTensor.from_local(
+        full[0].chunk(2, 1)[c["fsdp"]].chunk(2, 0)[c["tp"]].clone(),
+        state.device_mesh, (Shard(1), Replicate(), Shard(0)),
+    )
+    meta, _ = split_state_sharded({"experts": experts, "attn": attn})
+    out["heal/moe_keys"] = np.array(repr({k: meta[k].keys for k in meta}))
     return out
 
 

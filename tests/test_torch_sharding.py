@@ -186,12 +186,26 @@ def test_group_sizes_that_need_tp_or_sp_raise(world):
 def test_group_mesh_of_the_moe_model_is_the_jax_trainers(world, want):
     """``--model moe``: an even world gives the experts ep 2, fsdp 2 when
     n/2 is even, tp the rest (train_hsdp.py's MoE mesh); an odd one takes
-    auto_mesh. Where that needs both ep and tp (8 ranks: fsdp 2 x ep 2 x
-    tp 2; 6: ep 2 x tp 3), no test holds the experts' plan yet: it
-    raises, naming the ROADMAP item."""
+    auto_mesh. ``want`` None: the mesh needs both ep and tp (8 ranks: fsdp
+    2 x ep 2 x tp 2; 6: ep 2 x tp 3), held to JAX's ``make_mesh`` of the
+    JAX trainer's rule; llama_moe_debug splits over the first
+    (``check_model_mesh`` passes), and its 4 q and 2 kv heads do not
+    split over tp 3 (``check_model_mesh`` raises, naming them and the
+    axis)."""
+    from torchft_tpu_torch.models.llama import llama_moe_debug
+    from torchft_tpu_torch.parallel.train import check_model_mesh
+
     if want is None:
-        with pytest.raises(NotImplementedError, match="ep and tp have no test"):
-            group_mesh(world, 0, CPU, "moe")
+        mesh = group_mesh(world, world - 1, CPU, "moe")
+        rest = world // 2
+        fsdp = 2 if rest % 2 == 0 else 1
+        assert mesh.shape == dict(jax_make_mesh(fsdp=fsdp, ep=2, tp=rest // fsdp).shape)
+        assert mesh.shape["ep"] == 2 and mesh.shape["tp"] > 1
+        if world == 8:
+            check_model_mesh(llama_moe_debug(), mesh)
+        else:
+            with pytest.raises(ValueError, match="4 q and 2 kv heads do not split over tp=3"):
+                check_model_mesh(llama_moe_debug(), mesh)
         return
     mesh = group_mesh(world, world - 1, CPU, "moe")
     assert {a: n for a, n in mesh.shape.items() if n > 1} == want

@@ -280,6 +280,9 @@ class Attention(nn.Module):
         # Bound likewise: the sequence is then split over this group's
         # ranks, and the dense and flash attention gather k and v over it.
         self.sp_group: Any = None
+        # Set by bind_model_parallel in an MoE model bound to both groups:
+        # the output's sum over tp is then taken in fp32 and rounded once.
+        self.fp32_sums = False
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -314,6 +317,15 @@ class Attention(nn.Module):
             )
         else:
             out = dense_attention(q, k, v)
+        if self.fp32_sums and groups:
+            # The one-rank model's bits up to fp32's order of addition: the
+            # rank's part of wo's contraction in fp32 (bf16 products are
+            # exact there), summed over tp in fp32, rounded once.
+            out = F.linear(
+                out.reshape(B, S, -1).float(),
+                _local(self.wo.weight).to(cfg.dtype).float(),
+            )
+            return _sum_over_groups(out, groups).to(cfg.dtype)
         out = _linear(out.reshape(B, S, -1), _local(self.wo.weight), cfg.dtype)
         return _sum_over_groups(out, groups)
 
@@ -378,7 +390,21 @@ class MoEMLP(nn.Module):
     (``tp_group``), its block of each expert's feature columns. The tokens
     are the same on every rank of both groups (the batch shards over dp and
     fsdp only, as in the JAX mesh), the router runs whole on each, and the
-    combine is summed over both groups."""
+    combine is summed over both groups.
+
+    Bound to both, a rank holds its tensor-parallel block of the columns
+    of its expert-parallel block of experts, and the model takes its sums
+    over ranks in fp32 (``fp32_sums``, set by
+    ``Transformer.bind_model_parallel``): each expert's output summed over
+    tp and rounded to ``cfg.dtype`` once, where the one-rank model rounds
+    it, then the combine summed over ep and rounded once; the attention's
+    output likewise over tp. The top-k is discontinuous in the router's
+    input: with the parts rounded to bf16 before the sums, the router read
+    other bits than one rank's and a token near a tie went to another
+    expert (one token a layer in 512 at llama_moe_debug on the CPU). With
+    fp32 sums it reads one rank's bits up to fp32's order of addition.
+    The router's input is the same bits on every rank of both groups
+    either way (each rank's sums add the same parts in the same order)."""
 
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
@@ -397,6 +423,17 @@ class MoEMLP(nn.Module):
         self.load: Optional[tuple] = None
         self.tp_group: Any = None
         self.ep_group: Any = None
+        self.fp32_sums = False
+
+    def first_expert(self, n: int) -> int:
+        """The index of this rank's first expert when it holds ``n``: its
+        block over the expert-parallel group (the same block at every
+        tensor-parallel rank, which holds its columns of those experts)."""
+        if self.ep_group is None:
+            return 0
+        import torch.distributed as dist
+
+        return n * dist.get_rank(self.ep_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -433,20 +470,27 @@ class MoEMLP(nn.Module):
             _local(w) for w in (self.experts_gate, self.experts_up, self.experts_down)
         )
         x_e = x
+        # The groups over whose ranks the combine's weights enter parts of
+        # a sum: with fp32 sums each tp rank combines the whole (summed)
+        # expert outputs, so only the ep ranks' parts add up.
+        combined = _groups(self.ep_group) if self.fp32_sums else groups
         if groups:
             # This rank's experts; x and the combine weights carry
             # gradients of this rank's part of the sum only.
-            import torch.distributed as dist
-
             n = w_gate.shape[0]
-            e0 = n * dist.get_rank(self.ep_group) if self.ep_group is not None else 0
+            e0 = self.first_expert(n)
             x_e = _to_groups(x, groups)
             dispatch = dispatch[:, :, e0:e0 + n]
-            combine = _to_groups(combine, groups)[:, :, e0:e0 + n]
+            combine = _to_groups(combine, combined)[:, :, e0:e0 + n]
         xe = torch.einsum("bsec,bsh->bech", dispatch.to(dt), x_e.to(dt))
         hidden = F.silu(
             torch.einsum("bech,ehi->beci", xe, w_gate.to(dt))
         ) * torch.einsum("bech,ehi->beci", xe, w_up.to(dt))
+        if self.fp32_sums:
+            ye = torch.einsum("beci,eih->bech", hidden.float(), w_down.to(dt).float())
+            ye = _sum_over_groups(ye, _groups(self.tp_group)).to(dt)
+            out = torch.einsum("bsec,bech->bsh", combine.to(dt).float(), ye.float())
+            return _sum_over_groups(out, combined).to(x.dtype)
         ye = torch.einsum("beci,eih->bech", hidden, w_down.to(dt))
         out = torch.einsum("bsec,bech->bsh", combine.to(dt), ye)
         return _sum_over_groups(out, groups).to(x.dtype)
@@ -528,9 +572,13 @@ class Transformer(nn.Module):
         None: no such axis."""
         self.tp_group = tp_group
         self.sp_group = sp_group
+        # Bound to both, the routed model sums over ranks in fp32 (MoEMLP).
+        fp32_sums = tp_group is not None and ep_group is not None
         for m in self.modules():
             if isinstance(m, (Attention, MLP, MoEMLP)):
                 m.tp_group = tp_group
+            if isinstance(m, (Attention, MoEMLP)):
+                m.fp32_sums = fp32_sums
             if isinstance(m, Attention):
                 m.sp_group = sp_group
             if isinstance(m, MoEMLP):

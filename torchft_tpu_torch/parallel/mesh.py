@@ -223,10 +223,9 @@ def group_mesh(
     ``make_mesh(pp=2, dp=n/2)`` (2 ranks: pp 2; 4: pp 2 x dp 2), and on an
     odd one takes auto_mesh. ``moe`` on an even world gives its experts an
     ``ep`` extent of 2: ``fsdp = 2 if (n/2) % 2 == 0 else 1``, ``tp = n /
-    2 / fsdp`` (2 ranks: ep 2; 4: fsdp 2 x ep 2).
-
-    Raises for ``moe`` where that needs both ``ep`` and ``tp`` (6 ranks
-    and up), a plan no test holds yet."""
+    2 / fsdp`` (2 ranks: ep 2; 4: fsdp 2 x ep 2; 8: fsdp 2 x ep 2 x tp 2;
+    6: ep 2 x tp 3, which llama_moe_debug's 4 heads do not split:
+    ``parallel.train.check_model_mesh`` refuses it)."""
     devices = [device] * world_size
     even = world_size % 2 == 0
     if family == "pipeline" and even:
@@ -237,13 +236,6 @@ def group_mesh(
         mesh = make_mesh(fsdp=fsdp, ep=2, tp=rest // fsdp, devices=devices)
     else:
         mesh = auto_mesh(world_size, devices=devices)
-    if mesh.shape["ep"] > 1 and mesh.shape["tp"] > 1:
-        raise NotImplementedError(
-            f"a {family} group of {world_size} ranks factors as {mesh.shape}: "
-            "experts placed over both ep and tp have no test yet "
-            "(ROADMAP.md queue 1, what is left of tensor and expert "
-            "parallelism across ranks); run a group of 2 or 4 ranks"
-        )
     mesh.process_rank = rank
     return mesh
 

@@ -20,12 +20,16 @@ dim of the parameter.
 The parameters are placed in two steps, as FSDP2 composes with tensor
 parallelism. First the **tensor-parallel plan** (:func:`tp_plan`): each
 parameter whose spec names ``tp`` or ``ep`` on a mesh dim above 1 becomes a
-DTensor over those dims, ``Shard(d)`` each, as torch's ``ColwiseParallel``
-(``wq``, ``wk``, ``wv``, ``gate``, ``up``, ``lm_head``: the output dim) and
+DTensor over the mesh's ep and tp dims above 1 (the same dims for every
+such parameter, the one plan mesh FSDP2 composes with), ``Shard(d)`` over
+each the spec names, as torch's ``ColwiseParallel`` (``wq``, ``wk``,
+``wv``, ``gate``, ``up``, ``lm_head``: the output dim) and
 ``RowwiseParallel`` (``wo``, ``down``: the input dim; ``embed``: the vocab)
-place them, and the experts over ``ep`` with their feature dims over
-``tp``. The model reads each rank's local shard and runs the plan's
-collectives itself (``models/llama.py``), because its projections cast
+place them, the experts over ``ep`` with their feature dims over ``tp``,
+and ``Replicate()`` over a dim it does not name (the attention, the
+embedding and the head over ``ep`` where both are above 1). The model
+reads each rank's local shard and runs the plan's collectives itself
+(``models/llama.py``), because its projections cast
 input and weight to ``cfg.dtype`` outside ``nn.Linear.forward``, where
 those styles' hooks would sit. Then FSDP2 shards the ``fsdp`` dim over the
 group's (dp, fsdp) mesh dims, replicated over ``dp``
@@ -113,16 +117,24 @@ def tree_specs_like(tree: Any, spec_by_name: Dict[str, Spec]) -> Any:
     return walk(tree, ())
 
 
-def model_dims(spec: Spec, shape: Mapping[str, int]) -> Tuple[Tuple[str, int], ...]:
-    """``((axis, dim), ...)``: each of ``ep`` and ``tp`` (in mesh order)
-    that ``spec`` names and ``shape`` (axis -> size) gives above 1, with the
-    parameter dim it shards."""
-    return tuple(
-        (a, spec.index(a)) for a in MODEL_AXES if a in spec and shape.get(a, 1) > 1
-    )
+def model_dims(
+    spec: Spec, shape: Mapping[str, int]
+) -> Tuple[Tuple[str, Optional[int]], ...]:
+    """``((axis, dim), ...)``: the plan's mesh dims of a parameter with
+    ``spec`` on a mesh of ``shape`` (axis -> size): where the spec names
+    ``ep`` or ``tp`` on a dim above 1, each of ``ep`` and ``tp`` (in mesh
+    order) that ``shape`` gives above 1, with the parameter dim the spec
+    shards over it, None where the spec does not name it (replicated
+    there); empty where the spec names neither."""
+    above = tuple(a for a in MODEL_AXES if shape.get(a, 1) > 1)
+    if not any(a in spec for a in above):
+        return ()
+    return tuple((a, spec.index(a) if a in spec else None) for a in above)
 
 
-def tp_plan(model: torch.nn.Module, mesh: Mesh) -> Dict[str, Tuple[Tuple[str, int], ...]]:
+def tp_plan(
+    model: torch.nn.Module, mesh: Mesh
+) -> Dict[str, Tuple[Tuple[str, Optional[int]], ...]]:
     """The tensor-parallel plan of ``model`` on ``mesh``: {parameter name:
     :func:`model_dims`} for every parameter with a dim over ``ep`` or
     ``tp`` above 1 (none where both are 1). Raises where such a dim does
@@ -131,7 +143,7 @@ def tp_plan(model: torch.nn.Module, mesh: Mesh) -> Dict[str, Tuple[Tuple[str, in
     for name, p in model.named_parameters():
         dims = model_dims(spec_for(name, p.dim()), mesh.shape)
         for axis, d in dims:
-            if p.shape[d] % mesh.shape[axis]:
+            if d is not None and p.shape[d] % mesh.shape[axis]:
                 raise ValueError(
                     f"{name} {tuple(p.shape)}: dim {d} does not split over "
                     f"{axis}={mesh.shape[axis]}"
@@ -152,18 +164,26 @@ def param_placements(model: torch.nn.Module, device_mesh: Any) -> Dict[str, tupl
     (:func:`parallel.mesh.group_device_mesh`): ``Replicate()`` over dp
     where dp is above 1, ``Shard(d)`` over fsdp (``d`` from
     :func:`shard_dim`; what ``fully_shard``'s ``shard_placement_fn``
-    returns), then ``Shard(d)`` over each of the plan's ep and tp dims
-    (:func:`model_dims`): the order of FSDP2's mesh, its (dp, fsdp) mesh
-    followed by the plan's."""
-    from torch.distributed.tensor import Replicate, Shard
+    returns), then over each of the plan's ep and tp dims
+    (:func:`model_dims`) ``Shard(d)``, or ``Replicate()`` where ``d`` is
+    None: the order of FSDP2's mesh, its (dp, fsdp) mesh followed by the
+    plan's."""
+    from torch.distributed.tensor import Replicate
 
     shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.mesh.shape))
     dp = (Replicate(),) if shape.get("dp", 1) > 1 else ()
     return {
-        name: dp + (Shard(shard_dim(spec)),)
-        + tuple(Shard(d) for _, d in model_dims(spec, shape))
+        name: dp + (placement(shard_dim(spec)),)
+        + tuple(placement(d) for _, d in model_dims(spec, shape))
         for name, spec in param_specs(model).items()
     }
+
+
+def placement(dim: Optional[int]) -> Any:
+    """``Shard(dim)``, or ``Replicate()`` where ``dim`` is None."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return Replicate() if dim is None else Shard(dim)
 
 
 # The JAX package's export name for the placements.

@@ -60,6 +60,7 @@ from torchft_tpu_torch.parallel.sharding import (
     batch_sharding,
     param_placements,
     param_specs,
+    placement,
     shard_dim,
     spec_for,
     tp_plan,
@@ -285,11 +286,12 @@ def _group_of(mesh: Mesh, axes: Tuple[str, ...]) -> Any:
 def _place(module: torch.nn.Module, prefix: str, plan: Dict[str, Any],
            mesh: Mesh, device_mesh: Any) -> None:
     """The tensor-parallel plan applied to the parameters of ``module``
-    (named ``prefix`` + their name): each becomes a DTensor over its plan's
-    (ep, tp) mesh dims, ``Shard(d)`` each, this rank's block of the whole
-    parameter as its local shard (every rank made the whole one from the
-    same seed)."""
-    from torch.distributed.tensor import DTensor, Shard
+    (named ``prefix`` + their name): each becomes a DTensor over the plan's
+    (ep, tp) mesh dims, ``Shard(d)`` over each its spec names and
+    ``Replicate()`` over the other (``sharding.model_dims``), this rank's
+    block of the whole parameter as its local shard (every rank made the
+    whole one from the same seed)."""
+    from torch.distributed.tensor import DTensor
 
     coord = mesh.process_coordinate()
     for name, p in list(module.named_parameters()):
@@ -298,7 +300,8 @@ def _place(module: torch.nn.Module, prefix: str, plan: Dict[str, Any],
             continue
         local = p.detach()
         for axis, d in dims:
-            local = local.chunk(mesh.shape[axis], d)[coord[axis]]
+            if d is not None:
+                local = local.chunk(mesh.shape[axis], d)[coord[axis]]
         axes = tuple(a for a, _ in dims)
         sub = device_mesh[axes[0]] if len(axes) == 1 else device_mesh[axes]
         owner, _, leaf = name.rpartition(".")
@@ -306,7 +309,7 @@ def _place(module: torch.nn.Module, prefix: str, plan: Dict[str, Any],
             module.get_submodule(owner) if owner else module, leaf,
             torch.nn.Parameter(DTensor.from_local(
                 local.clone(memory_format=torch.contiguous_format), sub,
-                tuple(Shard(d) for _, d in dims), run_check=False,
+                tuple(placement(d) for _, d in dims), run_check=False,
                 shape=p.shape, stride=p.stride(),
             )),
         )
@@ -343,6 +346,25 @@ def state_shardings(model: Transformer, device_mesh: Any) -> Dict[str, Any]:
             for name in placements
         },
     }
+
+
+def check_model_mesh(cfg: LlamaConfig, mesh: Mesh) -> None:
+    """Raises ``ValueError`` where ``mesh`` does not split the model of
+    ``cfg``: its q or kv heads over ``tp``, or a dim the tensor-parallel
+    plan shards over ``ep`` or ``tp`` (``sharding.tp_plan`` names the
+    parameter, the dim and the axis). Runs no collective, so a trainer
+    refuses such a group before its rendezvous; the JAX package refuses
+    the same mesh when it places the state."""
+    tp = mesh.shape["tp"]
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"{cfg.num_heads} q and {cfg.num_kv_heads} kv heads do not split "
+            f"over tp={tp}"
+        )
+    with torch.device("meta"):
+        # The parameters are the same for every attention.
+        model = Transformer(dataclasses.replace(cfg, attn_impl="dense", attn_fn=None))
+    tp_plan(model, mesh)
 
 
 def init_train_state(
@@ -382,6 +404,7 @@ def init_train_state(
     from torch.distributed.tensor import Shard
 
     check_pipeline_mesh(mesh)
+    check_model_mesh(cfg, mesh)
     device_mesh = group_device_mesh(mesh)
     fsdp_mesh = _fsdp_mesh(device_mesh)
     # Every rank makes every group, in this order.
@@ -402,12 +425,6 @@ def init_train_state(
         model.layers = torch.nn.ModuleDict({
             str(i): model.layers[str(i)] for i in range(first, first + per_stage)
         })
-    tp = mesh.shape["tp"]
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-        raise ValueError(
-            f"{cfg.num_heads} q and {cfg.num_kv_heads} kv heads do not split "
-            f"over tp={tp}"
-        )
     plan = tp_plan(model, mesh)
 
     def shard(module: torch.nn.Module, named: Iterable[Tuple[str, Any]]) -> None:
@@ -568,11 +585,13 @@ def _grad_norm(state: TrainState, params: Iterable[Tuple[str, Any]]) -> torch.Te
     """The global norm of the gradients of ``params`` (name, parameter):
     the square root of the sum of the squares over the whole tensors, from
     each rank's local shards summed over the group's ranks, each shard's
-    square weighted by one over the number of ranks holding a copy of it:
+    square weighted by one over the number of ranks holding a copy of it
+    (the world over the ranks its ``Shard`` placements split it over):
     the dp and sp ranks, the ep and tp ranks of a parameter the plan does
-    not split (the norms, the router), and the pp ranks of a parameter
-    every stage holds (the embedding, final norm and head). Each element
-    counts once."""
+    not split (the norms, the router), the ep ranks of one it replicates
+    over ep (the attention, embedding and head at ep x tp), and the pp
+    ranks of a parameter every stage holds (the embedding, final norm and
+    head). Each element counts once."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
 

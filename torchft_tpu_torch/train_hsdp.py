@@ -10,13 +10,15 @@ The group's mesh is the JAX trainer's for that many devices
 (``parallel.mesh.group_mesh``): ``auto_mesh(WORLD_SIZE)`` for the dense
 models (2 ranks: fsdp 2; 4: fsdp 2 x tp 2; 8: fsdp 2 x tp 2 x sp 2),
 ``make_mesh(pp=2, dp=n/2)`` for ``--model pipeline`` on an even world, ep
-2 for ``--model moe``. Every axis is a process axis: the state is born
+2 for ``--model moe`` (2 ranks: ep 2; 4: fsdp 2 x ep 2; 8: fsdp 2 x ep 2 x
+tp 2). Every axis is a process axis: the state is born
 sharded over the ranks (``parallel.train.init_train_state``: FSDP2 over
 (dp, fsdp), the tensor-parallel plan over (ep, tp), replicated over sp, a
 pipeline stage's layers at each pp coordinate) and each rank takes its
 block of every step's global batch (its rows over (dp, fsdp), its sequence
-block over sp). ``--model moe`` where the mesh would need both ep and tp
-(6 ranks and up) raises before any rendezvous.
+block over sp). A mesh that does not split the model (``--model moe`` at
+6 ranks: ep 2 x tp 3, and 4 heads do not split over 3) raises
+``ValueError`` before any rendezvous.
 
 Per step: ``manager.start_quorum()``, the grad step, the replica-axis
 gradient average (``ManagedMesh.allreduce_grads``, which delegates to
@@ -206,20 +208,18 @@ def main(argv=None) -> int:
     )
     from torchft_tpu_torch.parallel import make_pipeline_loss
     from torchft_tpu_torch.parallel.mesh import group_env, group_mesh, init_group
-    from torchft_tpu_torch.parallel.train import init_train_state, make_grad_step
+    from torchft_tpu_torch.parallel.train import (
+        check_model_mesh,
+        init_train_state,
+        make_grad_step,
+    )
     from torchft_tpu_torch.process_group import make_process_group
 
     device = trainer_device(args.device, "train_hsdp")
     group = os.environ.get("REPLICA_GROUP_ID", "0")
     rank, world_size = group_env()
-    # The JAX trainer's mesh for this many devices and this model; raises
-    # before any rendezvous.
+    # The JAX trainer's mesh for this many devices and this model.
     mesh = group_mesh(world_size, rank, device, args.model)
-    init_group(device)
-    logging.info(
-        "[group %s] rank %d of %d, mesh %s", group, rank, world_size,
-        {a: n for a, n in mesh.shape.items() if n > 1} or {"fsdp": 1},
-    )
     B, S = args.batch, args.seq
     cfg = {
         "debug": llama_debug,
@@ -237,6 +237,13 @@ def main(argv=None) -> int:
     # fit the card, and recompute would run every block's forward (and its
     # attention kernel) twice per step.
     cfg = dataclasses.replace(cfg, remat=False)
+    # A mesh that does not split the model raises before any rendezvous.
+    check_model_mesh(cfg, mesh)
+    init_group(device)
+    logging.info(
+        "[group %s] rank %d of %d, mesh %s", group, rank, world_size,
+        {a: n for a, n in mesh.shape.items() if n > 1} or {"fsdp": 1},
+    )
     # The pipeline's loss, built (and its config refused) before the group
     # joins a quorum; None is the chunked loss.
     loss_fn = (

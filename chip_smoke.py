@@ -172,8 +172,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    long-context point, ``heal_bench`` and ``quorum_bench`` without
    ``error``, ``flops_counted`` within 10% of ``flops_per_step``, and
    kernels 1-3, 7 and 8 launched in that process.
-19. Orchestration: the flash drill's groups rendered by
-   ``orchestration.render_topology`` and kept alive by
+19. Orchestration over the native engine: the flash drill's groups
+   rendered by ``orchestration.render_topology`` with ``TORCHFT_PG=native``
+   (the C++ engine of ``torchft_tpu/_cpp/collectives.cc`` carries their
+   replica-axis allreduce) and kept alive by
    ``orchestration.ReplicaGroupRunner`` (``drill.runner_kill_heal_drill``).
    After group 1's step 3 its manager is killed through the lighthouse
    (``kill_via_lighthouse``); the manager server is a process of its own,
@@ -181,9 +183,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    2 s grace (the line says which ended it). The runner must relaunch
    group 1 once (restarts ``{0: 0, 1: 1}``), its journal must hold one
    ``proc_death`` (group 1's), and both groups must end at step 8 in
-   ``MESH_FREE_FLASH_SHA`` with every flash kernel launched in both.
-   Prints the wall time, the seconds from kill to relaunch and the restart
-   log's path.
+   ``MESH_FREE_FLASH_SHA`` (the engine's fp32 ring gives the socket
+   ring's bits) with every flash kernel launched in both; the groups'
+   journals must hold ``pg_collective`` allreduce rows of backend
+   ``torchft-native`` only, and ``drill.kill_episode`` must find the kill
+   one recovery episode (``telemetry.detect_episodes``), group 1 its
+   primary, its phases tiling its time to recover. Prints the wall time,
+   the seconds from kill to relaunch, the restart log's path, the time to
+   recover and its phases, and each group's median step and allreduce
+   beside phase 6's (the socket ring).
 20. Baby group: two Managers in threads of this process against an
    in-process lighthouse, each over ``ProcessGroupBabySocket``, on buffers
    of llama_small's parameter shapes on the card (a seed a replica): the
@@ -193,8 +201,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dequantize kernels for both replicas; a child wedged with
    ``_inject_stall`` fails its step at the wait's deadline, the next
    quorum respawns it (a new ``child_pid``) and the next allreduce commits
-   the fp32 bytes. Prints each allreduce's seconds with both groups, the
-   spawn and respawn seconds and ``df /dev/shm``.
+   the fp32 bytes. Then a third pair over ``ProcessGroupNative``: its fp32
+   allreduce must equal the socket group's bytes, and a planted fault
+   (replica 1's input changed after the socket reference) must fail that
+   check; and a fourth pair over the engine's int8 wire: both replicas
+   decode the same bytes, within 0.1 of the fp32 mean, under half the
+   fp32 engine's wire bytes. Prints each allreduce's seconds with every
+   group, the spawn and respawn seconds and ``df /dev/shm``.
 21. Tensor, expert, sequence and pipeline parallelism: two ranks on the
    card in a ``cpu:gloo,cuda:gloo`` world (NCCL refuses two ranks on one
    device; ``init_group`` returns at once for it), each first checking the
@@ -2589,25 +2602,36 @@ def bench_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def orchestration_phase() -> dict:
+def orchestration_phase(path: dict) -> dict:
     """Phase 19: ``drill.runner_kill_heal_drill`` over the flash drill's
-    arguments: the C++ lighthouse, two groups rendered by
-    ``orchestration.render_topology`` and kept alive by
+    arguments with ``TORCHFT_PG=native`` in both groups (the C++ engine is
+    their replica-axis data plane): the C++ lighthouse, two groups rendered
+    by ``orchestration.render_topology`` and kept alive by
     ``orchestration.ReplicaGroupRunner``. Group 1 is killed through the
     lighthouse after its step 3 (the runner SIGKILLs it if the trainer
     outlives its manager server) and must be relaunched by the runner once.
-    Raises unless both groups end at step 8 in ``MESH_FREE_FLASH_SHA`` with
-    finite losses, the runner's restarts are ``{0: 0, 1: 1}``, its journal
-    holds one ``proc_death`` (group 1's), and both groups launched every
-    flash kernel. Returns the drill's output."""
+    Raises unless both groups end at step 8 in ``MESH_FREE_FLASH_SHA`` (the
+    engine's fp32 ring gives the socket ring's bits) with finite losses,
+    the runner's restarts are ``{0: 0, 1: 1}``, its journal holds one
+    ``proc_death`` (group 1's), both groups launched every flash kernel,
+    the groups' journals hold ``pg_collective`` allreduce rows of backend
+    ``torchft-native`` and no other backend, and ``drill.kill_episode``
+    finds the kill one recovery episode with group 1 its primary, whose
+    phases tile its time to recover. Prints the time to recover, its phases
+    and each group's median allreduce beside phase 6's (``path``, the
+    socket ring). Returns the drill's output with the episode."""
     import shutil
 
-    from torchft_tpu_torch.drill import runner_kill_heal_drill
+    from torchft_tpu_torch.drill import kill_episode, runner_kill_heal_drill
+    from torchft_tpu_torch.telemetry import load_journal
 
     name = "orchestration path"
     result_dir = OUT / name
     shutil.rmtree(result_dir, ignore_errors=True)
-    out = runner_kill_heal_drill(PATH_ARGS, str(result_dir), str(result_dir / "logs"))
+    out = runner_kill_heal_drill(
+        PATH_ARGS, str(result_dir), str(result_dir / "logs"),
+        env={"TORCHFT_PG": "native"},
+    )
     if out["restarts"] != {0: 0, 1: 1}:
         raise AssertionError(f"{name}: runner restarts {out['restarts']}")
     deaths = [d["subject"] for d in out["proc_deaths"]]
@@ -2625,8 +2649,39 @@ def orchestration_phase() -> dict:
             if r["kernel_launches"][kernel] <= 0:
                 raise AssertionError(f"{name}: group {g} never launched {kernel}")
         print(f"{name} group {g}: final_step {r['final_step']} launches "
-              f"{r['kernel_launches']} median step {r['median_step_ms']:.1f} ms",
+              f"{r['kernel_launches']} median step {r['median_step_ms']:.1f} ms "
+              f"(phase 6, socket: {path[g]['median_step_ms']:.1f} ms), median "
+              f"allreduce native {r['median_phase_ms']['allreduce']:.1f} ms "
+              f"(phase 6, socket: {path[g]['median_phase_ms']['allreduce']:.1f} ms)",
               flush=True)
+    events = load_journal([out["journal_dir"]])
+    rows = [e["attrs"] for e in events if e["event"] == "pg_collective"]
+    backends = {r["backend"] for r in rows}
+    # The engine's own flight records: the collectives its ring carried
+    # (a dtype outside its set would fall back to the Python ring).
+    engine_ops = {}
+    for e in events:
+        if e["event"] == "native_collective" and e["attrs"]["status"] == "ok":
+            engine_ops[e["attrs"]["op"]] = engine_ops.get(e["attrs"]["op"], 0) + 1
+    if backends != {"torchft-native"} or not engine_ops.get("allreduce"):
+        raise AssertionError(
+            f"{name}: pg_collective backends {backends}, engine records "
+            f"{engine_ops}: the engine did not carry the gradient allreduce"
+        )
+    episode = kill_episode(out["journal_dir"], 1)
+    out["episode"] = episode
+    row = episode["replicas"]["1"]
+    # The detector dates the episode from its first journal evidence; a
+    # kill between two collectives leaves the survivor none, so the wall
+    # from the kill to the healed commit prints beside it.
+    print(f"{name} episode {episode['id']}: root cause "
+          f"{episode['root_cause']['kind']}, time to recover "
+          f"{episode['ttr_s']:.3f} s (group 1's row {row['ttr_s']:.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in row["phases"].items())
+          + f"; survivors' rows {sorted(set(episode['replicas']) - {'1'})}), "
+          f"kill to the healed commit {episode['t_end'] - out['kill_ts']:.3f} s, "
+          f"{len(rows)} pg_collective rows of torchft-native, engine records "
+          f"{engine_ops}", flush=True)
     print(f"{name} ok: both groups in MESH_FREE_FLASH_SHA, killed by the "
           f"{out['kill']} (kill_via_lighthouse, then runner.kill_group(1) "
           f"if the trainer outlived its manager server), kill to relaunch "
@@ -2646,6 +2701,10 @@ def orchestration_phase() -> dict:
 # deadline, at which the Manager aborts the groups.
 BABY_TIMEOUT_S = 120.0
 BABY_WEDGE_WAIT_S = 5.0
+# The engine's int8 wire against the fp32 mean: the JAX package's test
+# tolerance (tests/test_process_group_native.py, two quantization steps of
+# standard normal blocks of 512).
+NATIVE_INT8_ATOL = 0.1
 
 
 def baby_phase() -> dict:
@@ -2661,9 +2720,17 @@ def baby_phase() -> dict:
     ``_inject_stall``: the wait times out (``BABY_WEDGE_WAIT_S``) and the
     Manager aborts the groups, killing the children; the step fails, the next
     quorum respawns them (new ``child_pid``), and the next allreduce
-    commits with the fp32 bytes of (a). Prints each allreduce's seconds
-    with both groups, the respawn seconds and ``df /dev/shm``. Returns the
-    launches and timings."""
+    commits with the fp32 bytes of (a). Then (d) a third pair of Managers,
+    over ``ProcessGroupNative`` (the C++ engine), on the same inputs: the
+    fp32 allreduce must commit and equal the socket group's bytes, and a
+    planted fault (replica 1's input changed after the socket reference
+    was taken) must fail that equality; (e) a fourth pair over the engine's
+    int8 wire (``wire="int8"``): both replicas decode the same bytes,
+    within ``NATIVE_INT8_ATOL`` of the fp32 mean (the JAX package's test
+    tolerance), moving under half the fp32 engine's ``pg_wire_tx`` bytes.
+    Prints each allreduce's seconds with every group, the respawn seconds
+    and ``df /dev/shm``. Returns the launches and timings."""
+    import functools
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2678,7 +2745,8 @@ def baby_phase() -> dict:
     from torchft_tpu_torch.manager import Manager
     from torchft_tpu_torch.models import Transformer, llama_small
     from torchft_tpu_torch.ops import quantization
-    from torchft_tpu_torch.process_group import ProcessGroupSocket
+    from torchft_tpu_torch.process_group import ProcessGroupNative, ProcessGroupSocket
+    from torchft_tpu_torch.telemetry import byte_stats
 
     df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True)
     print(f"baby: df /dev/shm\n{df.stdout.strip()}", flush=True)
@@ -2737,6 +2805,9 @@ def baby_phase() -> dict:
 
     def flat(outs) -> np.ndarray:
         return torch.cat([t.reshape(-1) for t in outs]).cpu().numpy()
+
+    def differing(outs, want) -> int:
+        return int((flat(outs).view(np.int32) != want.view(np.int32)).sum())
 
     # (a) fp32 through the socket group, then through the Baby group.
     def close(lighthouse, managers) -> None:
@@ -2827,6 +2898,62 @@ def baby_phase() -> dict:
                 raise AssertionError(f"baby: replica {r}'s allreduce after the respawn differs")
     finally:
         close(lighthouse, managers)
+
+    # (d) fp32 through the native engine, then a planted fault.
+    def wire_step(managers) -> tuple:
+        """One fp32 step of both replicas and the pg_wire_tx bytes it sent."""
+        tx0 = byte_stats().get("pg_wire_tx", 0)
+        run = step(managers, False)
+        return run, byte_stats().get("pg_wire_tx", 0) - tx0
+
+    lighthouse, managers = make_managers(ProcessGroupNative, "native")
+    try:
+        if {m._pg.getBackendName() for m in managers} != {"torchft-native"}:
+            raise AssertionError("baby: the native pair is not over the engine")
+        native, native_tx = wire_step(managers)
+        if not all(c for c, _, _ in native):
+            raise AssertionError(f"baby: native fp32 commits {[c for c, _, _ in native]}")
+        for r in range(2):
+            differ = differing(native[r][1], want)
+            if differ:
+                raise AssertionError(
+                    f"baby: replica {r}'s fp32 native allreduce differs from the "
+                    f"socket group's in {differ} of {n_values} values"
+                )
+        planted = inputs[1][0].reshape(-1)
+        planted[0] += 1.0
+        try:
+            faulty = step(managers, False)
+        finally:
+            planted[0] -= 1.0
+        fault_differ = [differing(faulty[r][1], want) for r in range(2)]
+        if not all(fault_differ):
+            raise AssertionError(
+                f"baby: the planted fault passed the native equality check "
+                f"({fault_differ} values differ)"
+            )
+    finally:
+        close(lighthouse, managers)
+
+    # (e) the engine's int8 wire.
+    lighthouse, managers = make_managers(
+        functools.partial(ProcessGroupNative, wire="int8"), "native_int8"
+    )
+    try:
+        native_q8, q8_tx = wire_step(managers)
+        if not all(c for c, _, _ in native_q8):
+            raise AssertionError(f"baby: native int8 commits {[c for c, _, _ in native_q8]}")
+        got = [flat(native_q8[r][1]) for r in range(2)]
+        if got[0].tobytes() != got[1].tobytes():
+            raise AssertionError("baby: the replicas decode different int8 engine bytes")
+        q8_err = float(np.abs(got[0] - want).max())
+        if not (q8_err <= NATIVE_INT8_ATOL and 0 < q8_tx < native_tx / 2):
+            raise AssertionError(
+                f"baby: native int8 max error {q8_err} (limit {NATIVE_INT8_ATOL}), "
+                f"wire {q8_tx} B against fp32 {native_tx} B"
+            )
+    finally:
+        close(lighthouse, managers)
     out = {
         "launches": launches,
         "fp32_socket_s": [s for _, _, s in sock],
@@ -2837,13 +2964,22 @@ def baby_phase() -> dict:
         "wedge_step_s": wedge_s,
         "step_after_respawn_s": heal_s,
         "fp32_after_respawn_s": [s for _, _, s in healed],
+        "fp32_native_s": [s for _, _, s in native],
+        "fp32_native_planted_fault_differ": fault_differ,
+        "int8_native_s": [s for _, _, s in native_q8],
+        "int8_native_max_abs_err": q8_err,
+        "native_wire_tx": {"fp32": native_tx, "int8": q8_tx},
     }
     print(f"baby ok: {n_values} values ({4 * n_values} B fp32) a replica; fp32 "
           f"allreduce socket {out['fp32_socket_s']} s, baby {out['fp32_baby_s']} s "
           f"(bit-equal); int8 baby {out['int8_baby_s']} s (the host quantizer's "
           f"bits, launches {launches}); child spawn {spawn_s} s; wedged step "
           f"{wedge_s:.2f} s, children {old} -> {new}, respawn {respawn_s} s, "
-          f"next step {heal_s:.2f} s (allreduce {out['fp32_after_respawn_s']} s)",
+          f"next step {heal_s:.2f} s (allreduce {out['fp32_after_respawn_s']} s); "
+          f"native fp32 {out['fp32_native_s']} s (the socket group's bytes; the "
+          f"planted fault differs in {fault_differ} values), native int8 "
+          f"{out['int8_native_s']} s (max error {q8_err:.4f}, wire {q8_tx} B "
+          f"against fp32 {native_tx} B)",
           flush=True)
     (OUT / "baby.json").write_text(json.dumps(out, indent=1))
     return out
@@ -3488,6 +3624,7 @@ def tp_ep_phase() -> dict:
 
 
 def main() -> int:
+    t_main = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -3569,7 +3706,7 @@ def main() -> int:
     preempt = preempt_phase(path)
     train_step = train_step_phase()
     bench = bench_phase()
-    orchestration = orchestration_phase()
+    orchestration = orchestration_phase(path)
     baby = baby_phase()
     tp_ep = tp_ep_phase()
     for g in (0, 1):
@@ -3658,6 +3795,8 @@ def main() -> int:
             **rec,
         })
     (OUT / "kernels.json").write_text(json.dumps(kernels, indent=1))
+    print(f"chip_smoke wall {time.monotonic() - t_main:.1f} s (limit 1200 s)",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

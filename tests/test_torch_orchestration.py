@@ -397,6 +397,78 @@ def test_jax_and_port_demo_trainers_commit_the_same_bits(tmp_path):
     assert not np.array_equal(ws[0], np.zeros_like(ws[0]))
 
 
+def _journal_commits(journal, group):
+    """Committed steps in group ``group``'s journal so far."""
+    return sum(
+        1
+        for f in journal.glob(f"journal_replica{group}_*.jsonl")
+        for line in f.read_text(errors="replace").splitlines()
+        if '"commit_gate"' in line and '"committed": true' in line
+    )
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("pg", ["socket", "native"])
+def test_port_groups_heal_a_killed_jax_demo_trainer(tmp_path, pg):
+    """Two port demo trainers and one JAX demo trainer in one quorum under
+    one runner, over the socket group or ``TORCHFT_PG=native``. The JAX
+    group is SIGKILLed once it has committed; the runner relaunches it and
+    it heals from a port replica (a JAX heal source would skip the
+    collective that fences its checkpoint: ROADMAP.md section 3). A quorum
+    needs all three groups, so the port groups wait for the relaunch
+    however long its start takes. All three end at the last step with the
+    same ``w`` bits."""
+    steps = 40
+    lighthouse = _lighthouse(min_replicas=3)
+    result_dir = tmp_path / "results"
+    journal = tmp_path / "journal"
+    common = ["--steps", str(steps), "--min-replicas", "3",
+              "--result-dir", str(result_dir), "--step-sleep", "0.03"]
+    env = {"JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
+    if pg == "native":
+        env["TORCHFT_PG"] = "native"
+    try:
+        port = [sys.executable, "-m", "torchft_tpu_torch.orchestration.demo_trainer",
+                *common, "--device", "cpu"]
+        jax = [sys.executable, "-m", "torchft_tpu.orchestration.demo_trainer", *common]
+        specs = [
+            render_topology(
+                cmd, num_replica_groups=3, lighthouse_addr=lighthouse.address(),
+                env=env, journal_dir=str(journal),
+            )[g]
+            for g, cmd in enumerate((port, port, jax))
+        ]
+        runner = ReplicaGroupRunner(specs, max_restarts=2, log_dir=str(tmp_path / "logs"))
+        runner.start()
+        try:
+            deadline = time.monotonic() + 120
+            while _journal_commits(journal, 2) < 5:
+                assert time.monotonic() < deadline, "the JAX group never committed"
+                assert not sum(runner.restarts.values()), "a group died early"
+                time.sleep(0.05)
+            assert runner.kill_group(2)
+            assert runner.run_until_done(timeout=180), (
+                f"a demo trainer failed (restarts {runner.restarts})"
+            )
+            assert runner.restarts == {0: 0, 1: 0, 2: 1}
+        finally:
+            runner.stop()
+    finally:
+        lighthouse.shutdown()
+    results = [json.loads((result_dir / f"group{g}.json").read_text()) for g in range(3)]
+    assert [r["final_step"] for r in results] == [steps] * 3
+    assert 0 < results[2]["committed_this_life"] < steps, "the JAX group did not heal"
+    ws = [np.asarray(r["w"], np.float32).tobytes() for r in results]
+    assert ws[0] == ws[1] == ws[2]
+    backends = {
+        json.loads(line)["attrs"]["backend"]
+        for f in journal.glob("journal_replica*.jsonl")
+        for line in f.read_text(errors="replace").splitlines()
+        if '"pg_collective"' in line
+    }
+    assert backends == {f"torchft-{pg}"}
+
+
 def test_runner_cli_launches_groups_without_importing_torch(tmp_path):
     """``python -m torchft_tpu_torch.orchestration.runner`` runs each
     group's command with its topology environment, and the runner process

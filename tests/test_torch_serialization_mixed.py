@@ -2,7 +2,12 @@
 a port replica moves real arrays, in either direction, over ``dumps`` /
 ``loads``, the HTTP transport and the ``pg`` transport, and the port loads
 a JAX-made meta without importing JAX or the JAX package. A meta that holds
-another class of the JAX stack (an optax state) is refused."""
+another class of the JAX stack (an optax state) is refused.
+
+A bfloat16 leaf crosses the ``pg`` transport with its dtype and bits in
+both directions: received fresh, in place (``state_dict_fn``) and sharded.
+The port sends it as its bits under the JAX package's socket header
+``"bfloat16"``, and reads that header back with no ``ml_dtypes``."""
 
 import os
 import pickle
@@ -11,6 +16,7 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import optax
@@ -66,11 +72,14 @@ def _states(kind: str, seed: int = 0):
 
 
 def _bits(x):
-    """A leaf's raw bytes and dtype name, whichever package made it."""
+    """A leaf's raw bytes and dtype name, whichever package made it (a
+    jax.Array as its host copy)."""
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().tobytes(), "bfloat16", tuple(x.shape)
         return x.numpy().tobytes(), str(x.numpy().dtype), tuple(x.shape)
+    if hasattr(x, "addressable_shards"):
+        x = np.asarray(x)
     assert isinstance(x, np.ndarray), f"{type(x)} is not an array"
     return x.tobytes(), str(x.dtype), x.shape
 
@@ -135,17 +144,17 @@ def test_jax_http_receiver_heals_from_a_port_sender():
     _assert_same(got, jax_state)
 
 
-@pytest.mark.parametrize("port_sends", [False, True], ids=["jax_to_port", "port_to_jax"])
-def test_pg_transport_between_the_packages(port_sends):
-    """One world of 2 over the shared socket wire: rank 0 sends with one
-    package's ``PGTransport``, rank 1 receives with the other's."""
-    jax_state, port_state = _states("nested")
+def _pg_heal(port_sends, sent, **receiver_kw):
+    """One world of 2 over the shared socket wire: rank 0 sends ``sent``
+    with one package's ``PGTransport``, rank 1 receives with the other's
+    (``receiver_kw`` to its constructor; ``sharded`` to both). Returns
+    what rank 1 received."""
     store = TCPStoreServer()
     pgs = [TSocket(timeout=10.0), JSocket(timeout=10.0)]
     if not port_sends:
         pgs.reverse()
     sender_cls, receiver_cls = (TPG, JPG) if port_sends else (JPG, TPG)
-    sent, want = (port_state, jax_state) if port_sends else (jax_state, port_state)
+    sharded = receiver_kw.get("sharded", False)
     try:
         with ThreadPoolExecutor(max_workers=2) as pool:
             for f in [
@@ -153,17 +162,57 @@ def test_pg_transport_between_the_packages(port_sends):
                 for r, pg in enumerate(pgs)
             ]:
                 f.result(timeout=30)
-            sender = sender_cls(pgs[0], timeout=10.0)
-            receiver = receiver_cls(pgs[1], timeout=10.0)
+            sender = sender_cls(pgs[0], timeout=10.0, sharded=sharded)
+            receiver = receiver_cls(pgs[1], timeout=10.0, **receiver_kw)
             fs = pool.submit(sender.send_checkpoint, [1], 2, sent, 10)
             fr = pool.submit(receiver.recv_checkpoint, 0, "<n/a>", 2, 10)
             fs.result(timeout=30)
-            got = fr.result(timeout=30)
+            return fr.result(timeout=30)
     finally:
         for pg in pgs:
             pg.shutdown()
         store.shutdown()
-    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("port_sends", [False, True], ids=["jax_to_port", "port_to_jax"])
+def test_pg_transport_between_the_packages(port_sends):
+    """One world of 2 over the shared socket wire: rank 0 sends with one
+    package's ``PGTransport``, rank 1 receives with the other's."""
+    jax_state, port_state = _states("nested")
+    sent, want = (port_state, jax_state) if port_sends else (jax_state, port_state)
+    _assert_same(_pg_heal(port_sends, sent), want)
+
+
+def _bf16_target(port: bool, sharded: bool):
+    """A receiver's preallocated bf16 state of ``_states("bfloat16")``'s
+    shape: zeros, as each package holds it (a jax.Array for JAX's sharded
+    receiver, which builds onto the target's sharding)."""
+    if port:
+        return {"w": torch.zeros(5, 7, dtype=torch.bfloat16), "step": 0}
+    if sharded:
+        return {"w": jnp.zeros((5, 7), jnp.bfloat16), "step": 0}
+    return {"w": np.zeros((5, 7), ml_dtypes.bfloat16), "step": 0}
+
+
+@pytest.mark.parametrize("mode", ["fresh", "in_place", "sharded"])
+@pytest.mark.parametrize("port_sends", [False, True], ids=["jax_to_port", "port_to_jax"])
+def test_pg_transport_carries_a_bf16_leaf_between_the_packages(port_sends, mode):
+    """The bf16 leaf arrives with the sender's dtype and bits: as a fresh
+    receive, into the receiver's preallocated state (whose buffer then holds
+    the bits too), and through ``sharded=True`` on both sides."""
+    jax_state, port_state = _states("bfloat16")
+    if mode == "sharded" and not port_sends:
+        jax_state = {**jax_state, "w": jnp.asarray(jax_state["w"])}
+    sent, want = (port_state, jax_state) if port_sends else (jax_state, port_state)
+    kw = {}
+    if mode != "fresh":
+        target = _bf16_target(not port_sends, mode == "sharded")
+        kw = {"state_dict_fn": lambda: target, "sharded": mode == "sharded"}
+    got = _pg_heal(port_sends, sent, **kw)
+    assert _bits(got["w"]) == _bits(want["w"])
+    assert got["step"] == 3
+    if mode == "in_place":
+        assert _bits(target["w"]) == _bits(want["w"])
 
 
 def test_loading_a_jax_meta_imports_nothing_of_jax(tmp_path):
@@ -187,6 +236,57 @@ def test_loading_a_jax_meta_imports_nothing_of_jax(tmp_path):
         capture_output=True, text=True, timeout=60,
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_port_reads_a_bfloat16_header_without_ml_dtypes(tmp_path):
+    """A JAX ``ProcessGroupSocket`` sends a bf16 array, then a bf16 state
+    by ``PGTransport``, to a port rank in a process that never imports
+    ``ml_dtypes``: the array arrives with the sender's bits, and the state
+    lands in a bf16 tensor with them."""
+    jax_state, port_state = _states("bfloat16")
+    want = tmp_path / "want.bin"
+    want.write_bytes(_bits(port_state["w"])[0])
+    store = TCPStoreServer()
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from torchft_tpu_torch.process_group import ProcessGroupSocket\n"
+        "from torchft_tpu_torch.checkpointing.pg_transport import PGTransport\n"
+        "pg = ProcessGroupSocket(timeout=60.0)\n"
+        "pg.configure(sys.argv[1], 1, 2)\n"
+        "(a,) = pg.recv(0, tag='raw').wait(60)\n"
+        "want = open(sys.argv[2], 'rb').read()\n"
+        "assert a.dtype.itemsize == 2 and a.tobytes() == want, a.dtype\n"
+        "target = {'w': torch.zeros(5, 7, dtype=torch.bfloat16), 'step': 0}\n"
+        "got = PGTransport(pg, timeout=60.0, state_dict_fn=lambda: target)"
+        ".recv_checkpoint(0, '<n/a>', 2, 60)\n"
+        "for t in (got['w'], target['w']):\n"
+        "    assert t.dtype == torch.bfloat16, t.dtype\n"
+        "    assert t.view(torch.int16).numpy().tobytes() == want\n"
+        "pg.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('ml_dtypes', 'jax', 'jaxlib', 'torchft_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    child = subprocess.Popen(
+        [sys.executable, "-c", code, f"{store.address()}/nomld", str(want)],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+    )
+    pg = JSocket(timeout=60.0)
+    try:
+        pg.configure(f"{store.address()}/nomld", 0, 2)
+        pg.send([jax_state["w"]], 1, tag="raw").wait(60)
+        JPG(pg, timeout=60.0).send_checkpoint([1], 2, jax_state, 60)
+        out, _ = child.communicate(timeout=90)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        pg.shutdown()
+        store.shutdown()
+    assert child.returncode == 0, out
 
 
 def test_a_meta_with_an_optax_state_is_refused():

@@ -11,9 +11,11 @@ over a process group, and in-place receive into a preallocated state dict
 Torch tensors are pulled to host as numpy on serialize; receivers get numpy
 and move it to their device themselves — the transport layer never owns
 device placement. A bfloat16 tensor, whose dtype numpy lacks, travels as
-the raw bits of ``t.view(torch.int16)`` under the meta dtype ``"bfloat16"``
-(the name the JAX package writes for the same bytes) and is rebuilt as a
-bfloat16 tensor on the CPU.
+the raw bits of ``t.view(torch.int16)`` in the carrier of
+``torchft_tpu_torch._raw_dtypes``, under the meta dtype and the socket
+header ``"bfloat16"`` (the names the JAX package writes for the same
+bytes), and is rebuilt as a bfloat16 tensor on the CPU. An in-place
+receive copies a carrier's bits, never its integer values.
 
 The meta skeleton is pickled by :func:`dumps_meta` and read by
 :func:`loads_meta`, the one pair every transport uses, so a heal between the
@@ -21,17 +23,21 @@ two packages moves real arrays both ways: each `_TensorRef` is written under
 the JAX package's class name (its loader resolves its own class; the port's
 maps that name back to this class), and the port reads both names without
 importing the JAX package, and refuses any other class of the JAX stack.
+``sharded._ShardedRef`` is written and read the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import pickle
 import struct
 from dataclasses import dataclass
-from typing import Any, BinaryIO, List, Optional, Tuple
+from typing import Any, BinaryIO, ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from torchft_tpu_torch import _raw_dtypes
 
 _LEN = struct.Struct(">Q")
 
@@ -45,14 +51,10 @@ def _is_array(x: Any) -> bool:
     return mod.startswith("torch") and hasattr(x, "detach") and hasattr(x, "shape")
 
 
-# Checkpoint dtypes numpy lacks, each carried as the raw bits of an integer
-# dtype of its width.
-_RAW_DTYPES = {"bfloat16": np.int16}
-
-
 def wire_dtype(name: str) -> np.dtype:
-    """The numpy dtype a buffer of checkpoint dtype ``name`` travels as."""
-    return np.dtype(_RAW_DTYPES.get(name, name))
+    """The numpy dtype a buffer of checkpoint dtype ``name`` travels as
+    (the int16 carrier for ``"bfloat16"``)."""
+    return _raw_dtypes.from_wire_name(name)
 
 
 def _is_torch_tensor(x: Any) -> bool:
@@ -66,90 +68,131 @@ def dtype_name(x: Any) -> str:
     names; ``"bfloat16"`` as the JAX package writes it)."""
     if _is_torch_tensor(x):
         return str(x.dtype).removeprefix("torch.")
-    return str(np.dtype(x.dtype))
+    return _raw_dtypes.wire_name(np.dtype(x.dtype))
 
 
 def _to_host(x: Any) -> Tuple[np.ndarray, str]:
     """``(host array, checkpoint dtype name)`` of an array leaf. A CPU
-    tensor's array aliases the tensor (``.numpy()`` is zero-copy)."""
+    tensor's array aliases the tensor (``.numpy()`` is zero-copy); a
+    bfloat16 leaf is its bits in the carrier, which the socket header names
+    ``"bfloat16"``."""
     if isinstance(x, np.ndarray):
-        return x, str(x.dtype)
+        arr = _raw_dtypes.as_carrier(x)
+        return arr, _raw_dtypes.wire_name(arr.dtype)
     import torch
 
     t = x.detach()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).cpu().numpy(), "bfloat16"
+        bits = t.view(torch.int16).cpu().numpy()
+        return bits.view(_raw_dtypes.BF16), "bfloat16"
     return t.cpu().numpy(), dtype_name(t)
 
 
 def from_wire(arr: np.ndarray, dtype: str) -> Any:
     """A received buffer as its leaf: the numpy array itself, or for a
     dtype numpy lacks a CPU tensor over the same bytes."""
-    if dtype not in _RAW_DTYPES:
+    if not _raw_dtypes.is_raw_name(dtype):
         return arr
     import torch
 
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr).view(getattr(torch, dtype))
+    return torch.from_numpy(arr.view(np.int16)).view(getattr(torch, dtype))
+
+
+def copy_into(dst: np.ndarray, src: np.ndarray) -> bool:
+    """Writes ``src`` into the same-shape ``dst`` for an in-place receive;
+    False when ``dst`` cannot take it (read-only, another shape, or a
+    dtype numpy lacks on one side only). A dtype numpy lacks is copied as
+    its bits: casting its carrier's integers would change the values."""
+    if dst.shape != src.shape or not dst.flags.writeable:
+        return False
+    if _raw_dtypes.is_raw(dst.dtype) or _raw_dtypes.is_raw(src.dtype):
+        if _raw_dtypes.wire_name(dst.dtype) != _raw_dtypes.wire_name(src.dtype):
+            return False
+        np.copyto(dst.view(np.int16), src.view(np.int16))
+        return True
+    np.copyto(dst, src.astype(dst.dtype, copy=False))
+    return True
+
+
+def check_ref_state(cls: type, state: Any, types: Dict[str, Any]) -> None:
+    """Raises unless ``state``, read off the wire by ``cls.__setstate__``
+    from a ref either package wrote, holds exactly the fields ``types``
+    names, each of its type (a tuple type: the field's type and that of
+    its items); else the buffers would be misread."""
+
+    def ok(v: Any, t: Any) -> bool:
+        if isinstance(t, tuple):
+            return isinstance(v, t[0]) and all(ok(x, t[1]) for x in v)
+        return isinstance(v, t) and not (t is int and isinstance(v, bool))
+
+    if not (
+        isinstance(state, dict)
+        and set(state) == set(types)
+        and all(ok(state[k], t) for k, t in types.items())
+    ):
+        raise pickle.UnpicklingError(
+            f"malformed {cls.__name__} state {state!r}"
+        )
 
 
 @dataclass
 class _TensorRef:
     """Placeholder for an array leaf inside the pickled meta skeleton."""
 
+    # The JAX package's class, whose name the ref is written under.
+    WIRE_NAME: ClassVar[Tuple[str, str]] = (
+        "torchft_tpu.checkpointing._serialization", "_TensorRef",
+    )
+
     index: int
     dtype: str
     shape: Tuple[int, ...]
 
     def __setstate__(self, state: Any) -> None:
-        # A ref read off the wire, written by either package: its fields
-        # must be exactly these, or the buffers would be misread.
-        if (
-            not isinstance(state, dict)
-            or set(state) != {"index", "dtype", "shape"}
-            or not isinstance(state["index"], int)
-            or not isinstance(state["dtype"], str)
-            or not isinstance(state["shape"], tuple)
-            or not all(isinstance(d, int) for d in state["shape"])
-        ):
-            raise pickle.UnpicklingError(f"malformed _TensorRef state {state!r}")
+        check_ref_state(
+            _TensorRef, state, {"index": int, "dtype": str, "shape": (tuple, int)}
+        )
         self.__dict__.update(state)
 
 
-# The class a ref is written as, and the two names it is read from.
-_WIRE_REF = ("torchft_tpu.checkpointing._serialization", "_TensorRef")
-_REF_NAMES = {_WIRE_REF, (__name__, "_TensorRef")}
+# The JAX package's sharded ref, read as ``sharded._ShardedRef``.
+SHARDED_WIRE_NAME = ("torchft_tpu.checkpointing.sharded", "_ShardedRef")
 # Top-level packages of the JAX stack: the port reads none of their classes.
 _FOREIGN_ROOTS = {"torchft_tpu", "jax", "jaxlib", "flax", "optax"}
 
 
 class _MetaPickler(pickle._Pickler):
-    """Writes each `_TensorRef` as ``torchft_tpu...._TensorRef`` by name.
-    The pure-Python pickler, because the C pickler's ``save_global``
-    imports the module a class names, and that module imports JAX."""
+    """Writes each ref (a class with ``WIRE_NAME``) as the JAX package's
+    class by name. The pure-Python pickler, because the C pickler's
+    ``save_global`` imports the module a class names, and that module
+    imports JAX."""
 
     def save(self, obj: Any, save_persistent_id: bool = True) -> None:
-        if type(obj) is not _TensorRef:
+        wire = getattr(type(obj), "WIRE_NAME", None)
+        if wire is None:
             super().save(obj, save_persistent_id)
             return
         # What the JAX package's pickle of its own dataclass holds:
         # the class, NEWOBJ with no arguments, then BUILD with the fields.
-        self.save(_WIRE_REF[0])
-        self.save(_WIRE_REF[1])
+        self.save(wire[0])
+        self.save(wire[1])
         self.write(pickle.STACK_GLOBAL)
         self.save(())
         self.write(pickle.NEWOBJ)
-        self.save(
-            {"index": obj.index, "dtype": obj.dtype, "shape": tuple(obj.shape)}
-        )
+        self.save({f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
         self.write(pickle.BUILD)
 
 
 class _MetaUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str) -> Any:
-        if (module, name) in _REF_NAMES:
+        if (module, name) in (_TensorRef.WIRE_NAME, (__name__, "_TensorRef")):
             return _TensorRef
+        if (module, name) == SHARDED_WIRE_NAME:
+            from torchft_tpu_torch.checkpointing.sharded import _ShardedRef
+
+            return _ShardedRef
         if module.split(".")[0] in _FOREIGN_ROOTS:
             raise pickle.UnpicklingError(
                 f"checkpoint meta holds {module}.{name}, a class of the JAX "
@@ -216,12 +259,7 @@ def join_state(
                 dst = inplace_leaves[x.index]
                 # Read-only leaves (views of immutable buffers) can't be
                 # written in place; fall through to the fresh buffer.
-                if (
-                    dst is not None
-                    and dst.shape == arr.shape
-                    and dst.flags.writeable
-                ):
-                    np.copyto(dst, arr.astype(dst.dtype, copy=False))
+                if dst is not None and copy_into(dst, arr):
                     return from_wire(dst, x.dtype)
             return from_wire(arr, x.dtype)
         if isinstance(x, dict):

@@ -23,7 +23,10 @@ In this package a leaf has ONE addressable shard on each rank, and its
   embedding, norm and head) in every group, over ``sp`` the same leaves
   as its sp peers.
 
-A numpy leaf stays a plain ``_TensorRef``.
+A numpy leaf stays a plain ``_TensorRef``. A ``_ShardedRef`` is written
+under the JAX package's class name, as ``_TensorRef`` is, so a sharded heal
+crosses between the packages; a bfloat16 leaf goes out as its bits under
+the header ``"bfloat16"`` (``_serialization._to_host``).
 
 The receiver builds a FRESH tensor on the target leaf's device, in the
 checkpoint's dtype (for a DTensor target, a fresh local shard wrapped with
@@ -37,16 +40,19 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, ClassVar, List, Optional, Tuple
 
 import numpy as np
 
 from torchft_tpu_torch._dtensor import is_dtensor
 from torchft_tpu_torch.checkpointing._serialization import (
+    SHARDED_WIRE_NAME,
     _is_array,
     _is_torch_tensor,
     _TensorRef,
     _to_host,
+    check_ref_state,
+    copy_into,
     dtype_name,
     from_wire,
     wire_dtype,
@@ -60,12 +66,26 @@ class _ShardedRef:
     its own leaf's shards); ``slot_map[k]`` names the buffer for the k-th
     addressable device."""
 
+    # The JAX package's class, whose name the ref is written under.
+    WIRE_NAME: ClassVar[Tuple[str, str]] = SHARDED_WIRE_NAME
+
     first: int  # global buffer index of this leaf's first unique shard
     shapes: List[Tuple[int, ...]]  # per unique shard buffer
     slot_map: List[int]  # per device slot -> offset into shapes
     dtype: str
     global_shape: Tuple[int, ...]
     keys: List[Tuple]  # slice key per unique buffer
+
+    def __setstate__(self, state: Any) -> None:
+        check_ref_state(_ShardedRef, state, {
+            "first": int,
+            "shapes": (list, (tuple, int)),
+            "slot_map": (list, int),
+            "dtype": str,
+            "global_shape": (tuple, int),
+            "keys": (list, tuple),
+        })
+        self.__dict__.update(state)
 
 
 def _index_key(index: Tuple) -> Tuple:
@@ -147,8 +167,8 @@ def split_state_sharded_lazy(
                 tuple(x.shape), [_shard_key(x)],
             )
         if _is_array(x) and not np.isscalar(x):
-            arr = np.asarray(x)
-            ref = _TensorRef(len(thunks), str(arr.dtype), tuple(arr.shape))
+            arr, name = _to_host(np.asarray(x))
+            ref = _TensorRef(len(thunks), name, tuple(arr.shape))
             thunks.append(_accounted(
                 lambda arr=arr: np.ascontiguousarray(arr), len(thunks),
             ))
@@ -243,13 +263,7 @@ def place_plain_leaf(
     in-place contract): shared by the batch join and the streaming
     receiver."""
     arr = flat_buf.reshape(m.shape)
-    if (
-        target_leaf is not None
-        and isinstance(target_leaf, np.ndarray)
-        and target_leaf.shape == arr.shape
-        and target_leaf.flags.writeable
-    ):
-        np.copyto(target_leaf, arr.astype(target_leaf.dtype, copy=False))
+    if isinstance(target_leaf, np.ndarray) and copy_into(target_leaf, arr):
         return target_leaf
     return from_wire(arr, m.dtype)
 

@@ -53,6 +53,26 @@ _BUILT_THIS_PROCESS = False
 _BUILD_TARGETS = ("bin/lighthouse", "bin/torchft_manager", "bin/libtftcollectives.so")
 
 
+def _python_cxx() -> Optional[str]:
+    """The C++ compiler this Python was built with (``sysconfig``'s CXX),
+    when it is on PATH.
+
+    ``libtftcollectives.so`` is loaded into this process, which already
+    holds the shared C++ runtime. Built by a compiler that links a static
+    copy of it instead (a ``CXX`` toolchain whose library directory holds
+    only ``libstdc++.a``, which some images set), the library crashed in its
+    first use of iostreams (``fr_snapshot`` formatting a double). Python's
+    own compiler links the shared runtime."""
+    import shlex
+    import shutil
+    import sysconfig
+
+    cxx = sysconfig.get_config_var("CXX")
+    if not cxx or shutil.which(shlex.split(cxx)[0]) is None:
+        return None
+    return cxx
+
+
 def _ensure_built() -> None:
     """Builds the C++ control plane on first use (idempotent; safe across
     concurrent processes via a file lock on the build directory). Always
@@ -76,6 +96,7 @@ def _ensure_built() -> None:
             f"on PATH; prebuild {_BIN_DIR} or install a toolchain"
         )
 
+    cxx = _python_cxx()
     with _BUILD_LOCK:
         lock_path = _CPP_DIR / ".build.lock"
         with open(lock_path, "w") as lock_file:
@@ -84,7 +105,8 @@ def _ensure_built() -> None:
                 # The binaries this package runs, not the C++ tests that
                 # ``all`` adds: half the time of a fresh build.
                 proc = subprocess.run(
-                    ["make", "-j4", *_BUILD_TARGETS],
+                    ["make", "-j4", *([f"CXX={cxx}"] if cxx else []),
+                     *_BUILD_TARGETS],
                     cwd=_CPP_DIR,
                     capture_output=True,
                     text=True,

@@ -11,7 +11,9 @@ and by the CPU integration tests:
 - :func:`runner_kill_heal_drill`: the kill/heal drill with the groups
   launched by ``orchestration.render_topology`` and kept alive by
   ``orchestration.ReplicaGroupRunner``: the kill goes through the
-  lighthouse, and the runner, not the drill, relaunches the victim.
+  lighthouse, and the runner, not the drill, relaunches the victim;
+  :func:`kill_episode` reads the kill's recovery episode off the groups'
+  journals.
 
 A group is ``ranks_per_group`` processes (default 1), each launched with
 the torchrun environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and
@@ -389,12 +391,14 @@ _LIGHTHOUSE_KILL_GRACE_S = 2.0
 
 
 def runner_kill_heal_drill(
-    trainer_args: Sequence[str], result_dir: str, log_dir: str
+    trainer_args: Sequence[str], result_dir: str, log_dir: str,
+    env: Optional[Dict[str, str]] = None,
 ) -> dict:
     """Groups 0 and 1 of ``python -m torchft_tpu_torch.train_hsdp
     <trainer_args> --min-replicas 2 --result-dir <result_dir>``, one rank
     each, rendered by ``render_topology`` (each with its journal in
-    ``log_dir/journal``) and supervised by a ``ReplicaGroupRunner`` (logs
+    ``log_dir/journal``, and ``env`` in its environment: for example
+    ``TORCHFT_PG=native``) and supervised by a ``ReplicaGroupRunner`` (logs
     ``log_dir/replica<g>_rank0.r<restart>.log``). Once group 1's log shows
     its step 3, its manager is killed through the lighthouse
     (``kill_via_lighthouse``). That ends the manager server, a process of
@@ -407,7 +411,9 @@ def runner_kill_heal_drill(
     each death it sees as a ``failure_signal`` with source ``proc_death``.
     Returns ``{"results": {group: result JSON}, "restarts", "kill"
     ("lighthouse" or "runner": what ended the trainer), "kill_to_relaunch_s",
-    "wall_s", "restart_log", "proc_deaths"}``; raises if a group fails or
+    "kill_ts" (the wall clock at the lighthouse kill, the journals'
+    clock), "wall_s", "restart_log", "proc_deaths", "journal_dir"}``;
+    raises if a group fails or
     the drill outlasts 400 s. Every process it starts is stopped before it
     returns."""
     from torchft_tpu_torch.orchestration import (
@@ -430,6 +436,7 @@ def runner_kill_heal_drill(
         num_replica_groups=2,
         lighthouse_addr=lighthouse.address(),
         env={
+            **(env or {}),
             "PYTHONPATH": os.pathsep.join(
                 p for p in (str(_REPO), os.environ.get("PYTHONPATH", "")) if p
             ),
@@ -457,6 +464,7 @@ def runner_kill_heal_drill(
             time.sleep(0.05)
         victim = runner.live_pids()[1]
         t_kill = time.monotonic()
+        kill_ts = time.time()
         if not kill_via_lighthouse(
             lighthouse.address(), _lighthouse_replica_id(lighthouse.address(), 1)
         ):
@@ -497,6 +505,7 @@ def runner_kill_heal_drill(
         "restarts": runner.restarts,
         "kill": method,
         "kill_to_relaunch_s": relaunch_s,
+        "kill_ts": kill_ts,
         "wall_s": time.monotonic() - t0,
         "restart_log": str(logs / "replica1_rank0.r1.log"),
         "proc_deaths": [
@@ -504,4 +513,38 @@ def runner_kill_heal_drill(
             if e["event"] == "failure_signal"
             and e["attrs"].get("source") == "proc_death"
         ],
+        "journal_dir": str(journal),
     }
+
+
+def kill_episode(journal_dir: str, group: int) -> dict:
+    """The recovery episode of a drill's kill, by ``telemetry.detect_episodes``
+    over the groups' journals in ``journal_dir`` (``journal_replica*``).
+    The groups' first quorum heals at step 0, an episode of its own; the
+    kill's is the one after it. Raises unless exactly one episode has a
+    step above 0, it is closed, ``group`` is its primary, and
+    ``telemetry.check_episodes`` finds its phases tile its time to
+    recover."""
+    from torchft_tpu_torch import telemetry
+
+    events = telemetry.load_journal(
+        sorted(str(f) for f in Path(journal_dir).glob("journal_replica*.jsonl"))
+    )
+    episodes = [
+        e for e in telemetry.detect_episodes(events) if (e["max_step"] or 0) > 0
+    ]
+    if len(episodes) != 1:
+        raise RuntimeError(
+            f"{len(episodes)} episodes after step 0 in {journal_dir}: "
+            f"{[(e['id'], e['primary'], e['max_step']) for e in episodes]}"
+        )
+    (episode,) = episodes
+    if episode["open"] or episode["primary"] != str(group):
+        raise RuntimeError(
+            f"episode {episode['id']}: primary {episode['primary']}, open "
+            f"{episode['open']}; want group {group}, closed"
+        )
+    errors = telemetry.check_episodes(episodes)
+    if errors:
+        raise RuntimeError(f"episode {episode['id']} fails its check: {errors}")
+    return episode

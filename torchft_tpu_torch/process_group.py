@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from torchft_tpu_torch import _net
+from torchft_tpu_torch import _raw_dtypes
 from torchft_tpu_torch import chaos as _chaos
 from torchft_tpu_torch import knobs
 from torchft_tpu_torch.store import StoreClient
@@ -59,8 +60,8 @@ class ReduceOp(enum.Enum):
 
 def _as_list(tensors: Any) -> List[np.ndarray]:
     if isinstance(tensors, (list, tuple)):
-        return [np.asarray(t) for t in tensors]
-    return [np.asarray(tensors)]
+        return [_raw_dtypes.as_carrier(t) for t in tensors]
+    return [_raw_dtypes.as_carrier(tensors)]
 
 
 # -- per-peer link policy (TORCHFT_LINKS) ------------------------------------
@@ -334,7 +335,14 @@ class _PeerConn:
     def send(self, tag: str, arr: np.ndarray) -> None:
         if self.dead is not None:
             raise RuntimeError(f"connection to rank {self.peer} dead: {self.dead}")
-        header = {"tag": tag, "dtype": str(arr.dtype), "shape": list(arr.shape)}
+        # The header names the buffer's dtype as the JAX package does: a
+        # raw-bits carrier (a bfloat16 tensor's int16 bits) names the dtype
+        # it carries, so either package's recv restores it.
+        header = {
+            "tag": tag,
+            "dtype": _raw_dtypes.wire_name(arr.dtype),
+            "shape": list(arr.shape),
+        }
         # Zero-copy: sendall consumes the array's buffer directly.
         arr_c = np.ascontiguousarray(arr)
         try:
@@ -435,10 +443,11 @@ class _PeerConn:
             if q is not None and q.empty():
                 del self._queues[tag]
         # payload is a bytearray (writable buffer): frombuffer is already
-        # a mutable array over it, no copy needed.
-        return np.frombuffer(payload, dtype=np.dtype(header["dtype"])).reshape(
-            header["shape"]
-        )
+        # a mutable array over it, no copy needed. A "bfloat16" header
+        # becomes the int16 carrier, with no ml_dtypes needed.
+        return np.frombuffer(
+            payload, dtype=_raw_dtypes.from_wire_name(header["dtype"])
+        ).reshape(header["shape"])
 
     def close(self) -> None:
         try:
@@ -452,6 +461,13 @@ class _PeerConn:
 
 
 def _reduce(op: ReduceOp, acc: np.ndarray, other: np.ndarray) -> np.ndarray:
+    if _raw_dtypes.is_raw(acc.dtype):
+        # bfloat16 bits: reduce in fp32 and round once, as ml_dtypes'
+        # bfloat16 ufuncs do in the JAX package.
+        a = _raw_dtypes.bf16_to_f32(acc)
+        _reduce(op, a, _raw_dtypes.bf16_to_f32(other))
+        acc[...] = _raw_dtypes.f32_to_bf16(a)
+        return acc
     if op in (ReduceOp.SUM, ReduceOp.AVG):
         acc += other
     elif op == ReduceOp.MAX:
@@ -459,6 +475,16 @@ def _reduce(op: ReduceOp, acc: np.ndarray, other: np.ndarray) -> np.ndarray:
     elif op == ReduceOp.MIN:
         np.minimum(acc, other, out=acc)
     return acc
+
+
+def _divide(arr: np.ndarray, n: int) -> None:
+    """``arr /= n`` in place (AVG), bfloat16 bits as ml_dtypes divides them."""
+    if _raw_dtypes.is_raw(arr.dtype):
+        arr[...] = _raw_dtypes.f32_to_bf16(
+            _raw_dtypes.bf16_to_f32(arr) / np.float32(n)
+        )
+    else:
+        arr /= n
 
 
 class ProcessGroupSocket(ProcessGroup):
@@ -751,7 +777,7 @@ class ProcessGroupSocket(ProcessGroup):
                 self._ring_allreduce_flat(arr, op, f"{tag}.{i}")
         if op == ReduceOp.AVG:
             for arr in arrays:
-                arr /= ws
+                _divide(arr, ws)
         return arrays
 
     def _ring_allreduce_flat(self, arr: np.ndarray, op: ReduceOp, tag: str) -> None:
@@ -844,7 +870,7 @@ class ProcessGroupSocket(ProcessGroup):
             for peer, conn in self._peers.items():
                 _reduce(op, acc, conn.recv(tag, self._timeout).reshape(acc.shape))
             if op == ReduceOp.AVG:
-                acc /= self._world
+                _divide(acc, self._world)
             return acc
 
         return self._submit(
@@ -912,7 +938,11 @@ def _pack_arrays(arrays: List[np.ndarray]) -> Tuple[str, bytes]:
     self-describing per-array headers plus concatenated raw bytes, the same
     dtype-string round trip as _PeerConn's JSON frame headers."""
     metas = [
-        {"dtype": str(a.dtype), "shape": list(a.shape), "nbytes": int(a.nbytes)}
+        {
+            "dtype": _raw_dtypes.wire_name(a.dtype),
+            "shape": list(a.shape),
+            "nbytes": int(a.nbytes),
+        }
         for a in arrays
     ]
     payload = b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)
@@ -926,8 +956,10 @@ def _unpack_arrays(meta: str, data: bytearray) -> List[np.ndarray]:
     for m in json.loads(meta):
         nb = int(m["nbytes"])
         out.append(
-            np.frombuffer(view[off : off + nb], dtype=np.dtype(m["dtype"]))
-            .reshape(m["shape"])
+            np.frombuffer(
+                view[off : off + nb],
+                dtype=_raw_dtypes.from_wire_name(m["dtype"]),
+            ).reshape(m["shape"])
         )
         off += nb
     return out
@@ -1315,13 +1347,13 @@ class ProcessGroupNative(ProcessGroupSocket):
             self._drain_flight_records(engine)
         if op == ReduceOp.AVG:
             for arr in arrays:
-                arr /= self._world
+                _divide(arr, self._world)
         return arrays
 
     def _native_allreduce_one(
         self, engine: Any, arr: np.ndarray, op: ReduceOp
     ) -> bool:
-        name = str(arr.dtype)
+        name = _raw_dtypes.wire_name(arr.dtype)
         use_q8 = (
             self._wire == "int8"
             and name == "float32"

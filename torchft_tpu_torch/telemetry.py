@@ -1923,3 +1923,85 @@ def detect_episodes(
             "max_step": rows[primary]["max_step"],
         })
     return out
+
+
+# Slack of the tiling check: phase seconds must sum to the row's window.
+TILE_EPS_S = 1e-6
+
+
+def check_episodes(episodes: List[Dict[str, Any]]) -> List[str]:
+    """The episodes' own invariants (empty = pass), as the JAX package's
+    ``tools/recovery_report.py --check`` holds them per episode: a window
+    that is not inverted, at least one replica row, a root cause, phases
+    that are not negative and that tile each row's window, and a latched
+    cause for every failed heal attempt."""
+    errs: List[str] = []
+    for e in episodes:
+        if e["t_end"] < e["t_start"]:
+            errs.append(f"{e['id']}: inverted window")
+        if not e["replicas"]:
+            errs.append(f"{e['id']}: no replica rows")
+        if not e.get("root_cause", {}).get("replica"):
+            errs.append(f"{e['id']}: missing root cause")
+        for rid, row in e["replicas"].items():
+            total = row["t_end"] - row["t_start"]
+            tiled = sum(row["phases"].values())
+            if any(v < -TILE_EPS_S for v in row["phases"].values()):
+                errs.append(f"{e['id']}/{rid}: negative phase")
+            if abs(tiled - total) > max(TILE_EPS_S, 1e-9 * abs(total)):
+                errs.append(
+                    f"{e['id']}/{rid}: phases sum {tiled:.6f}s != window "
+                    f"{total:.6f}s"
+                )
+            for a in row["attempts"]:
+                if not a.get("ok") and not a.get("cause"):
+                    errs.append(
+                        f"{e['id']}/{rid}: failed attempt without a "
+                        "latched cause"
+                    )
+    return errs
+
+
+def load_journal(paths: List[str]) -> List[Dict[str, Any]]:
+    """Every event of the journal files (or directories of ``*.jsonl``) in
+    ``paths``, sorted by timestamp, as the JAX package's
+    ``tools/obs_report.py load_events`` reads them. Malformed lines are
+    skipped (a journal cut by a kill ends in one). Rotation-aware: a
+    journal's ``.1`` segment (``TORCHFT_JOURNAL_MAX_MB``) is read before
+    it, once."""
+    import glob
+
+    files: List[str] = []
+
+    def add(f: str) -> None:
+        prev = f + ".1"
+        if not f.endswith(".1") and os.path.exists(prev) and prev not in files:
+            files.append(prev)
+        if f not in files:
+            files.append(f)
+
+    for p in paths:
+        if os.path.isdir(p):
+            for f in sorted(glob.glob(os.path.join(p, "*.jsonl"))):
+                add(f)
+        else:
+            add(p)
+    events: List[Dict[str, Any]] = []
+    for f in files:
+        try:
+            fh = open(f)
+        except OSError:
+            continue
+        with fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    ev = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(ev, dict) and "event" in ev:
+                    events.append(ev)
+    events.sort(key=lambda e: e.get("ts", 0.0))
+    return events

@@ -13,6 +13,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    library no conversion or rounding instruction (I2F, I2FP, F2I, F2IP,
    FRND) and no spill in any instantiation of the reduce kernel (counts by
    opcode and ptxas' registers and spills in ``sass_check.json``).
+1a. The engine library's C++ runtime: an engine library that links the C++
+   runtime statically (the Makefile's flags and ``-static-libstdc++``) is
+   planted in a scratch build directory under ``chiprun_out/``, and a fresh
+   process points ``coordination._BIN_DIR`` at it and calls
+   ``_native._load``. It must rebuild the library (its ``DT_NEEDED`` then
+   lists ``libstdc++.so.6``), load it, run one two-rank engine allreduce
+   and one ``fr_snapshot``, and exit 0. Prints both ``DT_NEEDED`` lists.
+   It runs beside phase 1's build and SASS check (CPU work only).
 2. Flash kernels: each kernel against its plain PyTorch version on the card,
    element by element (``TOL``), at the training path's shapes
    (llama_small: B=8, S=1024, Hq=12, Hkv=4, D=64, bf16) and at further
@@ -191,7 +199,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    primary, its phases tiling its time to recover. Prints the wall time,
    the seconds from kill to relaunch, the restart log's path, the time to
    recover and its phases, and each group's median step and allreduce
-   beside phase 6's (the socket ring).
+   beside phase 6's (the socket ring). Both groups also run with
+   ``drill.FAULT_PLANES_ENV``: four stripes a peer link
+   (``TORCHFT_LINKS=*=local,streams=4``, no int8 wire), a seeded
+   ``TORCHFT_CHAOS`` reset of every stripe-1 leg in step 7 (after the
+   heal), and a digest at every gate. ``drill.fault_planes`` must find a
+   ``stripe_failover`` handoff journaled by both groups in a step both
+   committed, each group's goodput ledger (``goodput_window`` events,
+   ``telemetry.audit_goodput``) tiling its accounted wall within 1e-6 s
+   with every kind in ``BADPUT_KINDS`` and group 1 with two incarnations
+   and ``down`` and ``heal`` above 0, and a digest of each group with a
+   step rate above 0 in the lighthouse's fleet view (read during the
+   drill). Before the drill, a planted fault (every stripe of a 4 MiB
+   allreduce of two engine ranks of this process reset) must abort and
+   latch and be refused by the failover check. Prints one line each and
+   the phase's wall.
 20. Baby group: two Managers in threads of this process against an
    in-process lighthouse, each over ``ProcessGroupBabySocket``, on buffers
    of llama_small's parameter shapes on the card (a seed a replica): the
@@ -343,6 +365,111 @@ def build_kernels() -> None:
         if ptxas.exists():
             (OUT / ptxas.name).write_text(ptxas.read_text())
         print(f"build: {source} {secs:.1f}s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1a: the engine library's C++ runtime
+# ---------------------------------------------------------------------------
+
+# A fresh process that loads the engine from ``sys.argv[2]`` (a build
+# directory holding a static-runtime library), then runs one two-rank
+# allreduce and one flight-recorder snapshot on it.
+ENGINE_LOAD_CHECK = r"""
+import json, sys, threading, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from torchft_tpu_torch import _native, coordination
+from torchft_tpu_torch.process_group import ProcessGroupNative, ReduceOp
+from torchft_tpu_torch.store import TCPStoreServer
+
+coordination._BIN_DIR = Path(sys.argv[2])
+coordination._BUILT_THIS_PROCESS = True
+lib = coordination._BIN_DIR / coordination.ENGINE_LIBRARY
+before = _native.needed_libraries(lib)
+t0 = time.monotonic()
+_native._load()
+load_s = time.monotonic() - t0
+after = _native.needed_libraries(lib)
+store = TCPStoreServer()
+groups = [ProcessGroupNative(timeout=60.0) for _ in range(2)]
+arrs = [np.full(1 << 20, r + 1.0, np.float32) for r in range(2)]
+def run(r):
+    groups[r].configure(f"{store.address()}/runtime", r, 2)
+    groups[r].allreduce(arrs[r], ReduceOp.SUM).wait(timeout=60)
+threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+[t.start() for t in threads]
+[t.join(120) for t in threads]
+ok = all(bool((a == 3.0).all()) for a in arrs)
+ops = [r["op"] for r in groups[0]._engine.fr_snapshot(0)["records"]]
+for g in groups:
+    g.shutdown()
+store.shutdown()
+print(json.dumps({"before": before, "after": after, "load_s": load_s,
+                  "allreduce_ok": ok, "fr_ops": ops}))
+"""
+
+
+def plant_static_runtime_engine(bin_dir: Path) -> tuple:
+    """Builds ``libtftcollectives.so`` into ``bin_dir`` with the Makefile's
+    flags and ``-static-libstdc++``: by Python's compiler, or else by the
+    image's ``CXX``. Returns (compiler, seconds)."""
+    import shlex
+    import shutil
+    import sysconfig
+
+    from torchft_tpu_torch import _native, coordination
+
+    flags = next(
+        line.split("=", 1)[1].strip()
+        for line in (coordination._CPP_DIR / "Makefile").read_text().splitlines()
+        if line.startswith("CXXFLAGS ?=")
+    )
+    lib = bin_dir / coordination.ENGINE_LIBRARY
+    tried = []
+    for cxx in (sysconfig.get_config_var("CXX"), os.environ.get("CXX")):
+        if not cxx or shutil.which(shlex.split(cxx)[0]) is None:
+            continue
+        shutil.rmtree(bin_dir, ignore_errors=True)
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            ["make", "-j8", f"CXX={cxx}", f"BIN={bin_dir}",
+             f"CXXFLAGS={flags} -static-libstdc++", str(lib)],
+            cwd=coordination._CPP_DIR, capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode == 0 and "libstdc++.so.6" not in _native.needed_libraries(lib):
+            return cxx, time.monotonic() - t0
+        tried.append(f"{cxx}: rc {proc.returncode} {proc.stderr[-400:]}")
+    raise AssertionError("phase 1a: no compiler here links the C++ runtime "
+                         f"statically: {tried}")
+
+
+def engine_runtime_phase() -> dict:
+    """Phase 1a (module docstring). Returns the fresh process's report."""
+    import shutil
+
+    bin_dir = OUT / "static_runtime_bin"
+    cxx, plant_s = plant_static_runtime_engine(bin_dir)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", ENGINE_LOAD_CHECK, str(REPO), str(bin_dir)],
+        capture_output=True, text=True, timeout=400,
+    )
+    wall = time.monotonic() - t0
+    (OUT / "engine_runtime.log").write_text(proc.stdout + proc.stderr)
+    shutil.rmtree(bin_dir, ignore_errors=True)  # ~20 MB of objects
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 1a: the loading process exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if ("libstdc++.so.6" in out["before"] or "libstdc++.so.6" not in out["after"]
+            or not out["allreduce_ok"] or "allreduce" not in out["fr_ops"]):
+        raise AssertionError(f"phase 1a: {out}")
+    print(f"engine runtime: planted by {cxx} in {plant_s:.1f}s, DT_NEEDED before "
+          f"{out['before']} after {out['after']}, _load (rebuild) {out['load_s']:.1f}s, "
+          f"allreduce ok, fr_snapshot ops {out['fr_ops']}, process wall {wall:.1f}s",
+          flush=True)
+    return out
 
 
 # The bf16 bodies that must run on the tensor cores, built at every head_dim.
@@ -2617,20 +2744,31 @@ def orchestration_phase(path: dict) -> dict:
     the groups' journals hold ``pg_collective`` allreduce rows of backend
     ``torchft-native`` and no other backend, and ``drill.kill_episode``
     finds the kill one recovery episode with group 1 its primary, whose
-    phases tile its time to recover. Prints the time to recover, its phases
-    and each group's median allreduce beside phase 6's (``path``, the
-    socket ring). Returns the drill's output with the episode."""
+    phases tile its time to recover. With ``drill.FAULT_PLANES_ENV`` in
+    both groups, ``drill.fault_planes`` must hold the stripe failover, the
+    goodput ledger and the fleet digests (module docstring), and a planted
+    all-stripes reset (``planted_stripe_kill``) must be refused. Prints the
+    time to recover, its phases, each group's median allreduce beside
+    phase 6's (``path``, the socket ring), one line for each plane and the
+    phase's wall. Returns the drill's output with the episode and the
+    planes."""
     import shutil
 
-    from torchft_tpu_torch.drill import kill_episode, runner_kill_heal_drill
+    from torchft_tpu_torch.drill import (
+        FAULT_PLANES_ENV,
+        fault_planes,
+        kill_episode,
+        runner_kill_heal_drill,
+    )
     from torchft_tpu_torch.telemetry import load_journal
 
     name = "orchestration path"
+    t_phase = time.monotonic()
+    planted = planted_stripe_kill()
     result_dir = OUT / name
     shutil.rmtree(result_dir, ignore_errors=True)
     out = runner_kill_heal_drill(
-        PATH_ARGS, str(result_dir), str(result_dir / "logs"),
-        env={"TORCHFT_PG": "native"},
+        PATH_ARGS, str(result_dir), str(result_dir / "logs"), env=FAULT_PLANES_ENV,
     )
     if out["restarts"] != {0: 0, 1: 1}:
         raise AssertionError(f"{name}: runner restarts {out['restarts']}")
@@ -2682,12 +2820,124 @@ def orchestration_phase(path: dict) -> dict:
           f"kill to the healed commit {episode['t_end'] - out['kill_ts']:.3f} s, "
           f"{len(rows)} pg_collective rows of torchft-native, engine records "
           f"{engine_ops}", flush=True)
+    planes = fault_planes(out)
+    out["planes"] = planes
+    print(f"{name} stripe_failover: {FAULT_PLANES_ENV['TORCHFT_LINKS']}, "
+          f"{FAULT_PLANES_ENV['TORCHFT_CHAOS']}: handoffs on both ends at step(s) "
+          f"{planes['failover_steps']}, committed by both groups; rows "
+          + "; ".join(
+              f"group {g}: " + ", ".join(
+                  f"{f['dir']} s{f['stripe']}->s{f['to_stripe']} {f['tag']} {f['nbytes']} B"
+                  for f in rows)
+              for g, rows in sorted(planes["failovers"].items())),
+          flush=True)
+    print(f"{name} goodput ledger (goodput_window events, telemetry.audit_goodput): "
+          + "; ".join(
+              f"group {g}: {row['incarnations']} incarnation(s), {row['windows']} "
+              f"windows, accounted {row['accounted_s']:.6f} s, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in row["badput_s"].items() if v)
+              for g, row in sorted(planes["goodput"].items()))
+          + ": every window and incarnation tiles within 1e-6 s", flush=True)
+    print(f"{name} fleet digests at the lighthouse: "
+          + "; ".join(
+              f"group {g} ({out['fleet'][g]['replica_id']}): step {d['step']}, rate "
+              f"{d['rate']} steps/s, gp {d.get('gp')}, chaos {d.get('chaos', 0)}"
+              for g, d in sorted(planes["fleet"].items())), flush=True)
+    print(f"{name} planted fault {planted['spec']}: {planted['errors']} rank(s) failed "
+          f"their allreduce, latched {planted['latched']}, {planted['failovers']} "
+          f"handoffs: the failover check refused it ({planted['refused']})", flush=True)
     print(f"{name} ok: both groups in MESH_FREE_FLASH_SHA, killed by the "
           f"{out['kill']} (kill_via_lighthouse, then runner.kill_group(1) "
           f"if the trainer outlived its manager server), kill to relaunch "
           f"{out['kill_to_relaunch_s']:.2f}s, drill wall {out['wall_s']:.1f}s, "
-          f"restarts {out['restarts']}, restart log {out['restart_log']}",
-          flush=True)
+          f"restarts {out['restarts']}, restart log {out['restart_log']}, "
+          f"phase wall {time.monotonic() - t_phase:.1f}s", flush=True)
+    return out
+
+
+# The planted fault of phase 19: every stripe of the collective reset, so no
+# leg is left to take a range over (tests/test_wan.py's all-stripes case).
+ALL_STRIPES_RESET = "seed:7,spec:reset@data:match=c1"
+
+
+def stripe_failover_check(out: dict) -> None:
+    """Phase 19's contract for one collective under a stripe reset: every
+    rank completed it with the unfaulted bits, no group latched an error,
+    and at least one range was handed to a live stripe."""
+    if out["errors"] or not out["bitwise"] or out["latched"] or not out["failovers"]:
+        raise AssertionError(f"stripe failover: {out}")
+
+
+def planted_stripe_kill() -> dict:
+    """Two ``ProcessGroupNative`` ranks of this process over loopback, four
+    stripes a link, one 4 MiB fp32 allreduce under ``ALL_STRIPES_RESET``:
+    the collective must fail and latch, and ``stripe_failover_check`` must
+    refuse the outcome. Returns the outcome."""
+    import threading
+
+    import numpy as np
+
+    from torchft_tpu_torch import _native
+    from torchft_tpu_torch.drill import STRIPED_LINKS
+    from torchft_tpu_torch.process_group import ProcessGroupNative, ReduceOp
+    from torchft_tpu_torch.store import TCPStoreServer
+
+    saved = os.environ.get("TORCHFT_LINKS")
+    os.environ["TORCHFT_LINKS"] = STRIPED_LINKS
+    store = TCPStoreServer()
+    groups = [ProcessGroupNative(timeout=20.0) for _ in range(2)]
+    n = 1 << 20
+    arrs = [np.arange(n, dtype=np.float32) + r for r in range(2)]
+    errors = [None, None]
+
+    def run(r, fn):
+        try:
+            fn(r)
+        except Exception as e:  # noqa: BLE001 - the outcome under test
+            errors[r] = e
+
+    def parallel(fn):
+        threads = [threading.Thread(target=run, args=(r, fn)) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+
+    try:
+        parallel(lambda r: groups[r].configure(f"{store.address()}/planted", r, 2))
+        if any(errors):
+            raise AssertionError(f"planted stripe kill: configure failed: {errors}")
+        _native.chaos_init(ALL_STRIPES_RESET)
+        parallel(lambda r: groups[r].allreduce(arrs[r], ReduceOp.SUM).wait(timeout=30))
+        want = np.arange(n, dtype=np.float32) * 2 + 1
+        out = {
+            "spec": ALL_STRIPES_RESET,
+            "errors": sum(e is not None for e in errors),
+            "bitwise": all(a.tobytes() == want.tobytes() for a in arrs),
+            "latched": any(g.errored() is not None for g in groups),
+            "failovers": sum(
+                len(g._engine.fr_snapshot(0).get("failovers", [])) for g in groups
+            ),
+        }
+    finally:
+        _native.chaos_init(" ")
+        for g in groups:
+            g.shutdown()
+        store.shutdown()
+        if saved is None:
+            os.environ.pop("TORCHFT_LINKS", None)
+        else:
+            os.environ["TORCHFT_LINKS"] = saved
+    try:
+        stripe_failover_check(out)
+    except AssertionError as e:
+        out["refused"] = str(e)
+    else:
+        raise AssertionError(f"phase 19: the planted all-stripes kill passed the "
+                             f"failover check: {out}")
+    if not out["errors"] or not out["latched"]:
+        raise AssertionError(f"phase 19: the planted all-stripes kill did not abort "
+                             f"and latch: {out}")
     return out
 
 
@@ -3639,8 +3889,15 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     set_peaks(torch.cuda.get_device_name(0))
-    build_kernels()
-    sass_check()
+    from concurrent.futures import ThreadPoolExecutor
+
+    # Phase 1a needs the CPU only: it runs beside the build and the SASS
+    # check, before any phase times the card.
+    with ThreadPoolExecutor(1) as pool:
+        runtime = pool.submit(engine_runtime_phase)
+        build_kernels()
+        sass_check()
+        runtime.result()
 
     records = kernel_phase()
     records.update(block_phase())

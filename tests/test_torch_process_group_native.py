@@ -16,6 +16,7 @@ import sysconfig
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -25,7 +26,12 @@ from torchft_tpu import process_group as jpg
 from torchft_tpu import telemetry as jtelemetry
 from torchft_tpu_torch import _native, _raw_dtypes
 from torchft_tpu_torch import telemetry
-from torchft_tpu_torch.drill import kill_episode, runner_kill_heal_drill
+from torchft_tpu_torch.drill import (
+    FAULT_PLANES_ENV,
+    fault_planes,
+    kill_episode,
+    runner_kill_heal_drill,
+)
 from torchft_tpu_torch.process_group import (
     ErrorSwallowingProcessGroupWrapper,
     FakeProcessGroupWrapper,
@@ -39,6 +45,10 @@ from torchft_tpu_torch.store import TCPStoreServer
 from torchft_tpu_torch.telemetry import byte_stats
 
 from test_torch_orchestration import _journal_commits
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+
+import goodput_report  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
     not _native.is_available(), reason="native collective engine unavailable"
@@ -117,7 +127,8 @@ def test_engine_library_links_the_shared_cxx_runtime():
 
 def test_the_engine_is_built_with_pythons_cxx(monkeypatch):
     """A ``CXX`` in the environment (a toolchain that links libstdc++
-    statically) does not reach the build: make gets Python's compiler."""
+    statically) does not reach the build: make gets Python's compiler, and
+    ``BIN`` names the directory that the port loads from."""
     from torchft_tpu_torch import coordination
 
     calls = []
@@ -132,7 +143,103 @@ def test_the_engine_is_built_with_pythons_cxx(monkeypatch):
     coordination._ensure_built()
     (argv,) = calls
     assert f"CXX={sysconfig.get_config_var('CXX')}" in argv
-    assert argv[-len(coordination._BUILD_TARGETS):] == list(coordination._BUILD_TARGETS)
+    assert f"BIN={coordination._BIN_DIR}" in argv
+    assert argv[-len(coordination._BUILD_TARGETS):] == [
+        str(coordination._BIN_DIR / t) for t in coordination._BUILD_TARGETS
+    ]
+
+
+def _makefile_cxxflags():
+    from torchft_tpu_torch import coordination
+
+    for line in (coordination._CPP_DIR / "Makefile").read_text().splitlines():
+        if line.startswith("CXXFLAGS ?="):
+            return line.split("=", 1)[1].split()
+    raise AssertionError("no CXXFLAGS in the Makefile")
+
+
+def _plant_static_runtime_engine(bin_dir):
+    """An engine library in ``bin_dir`` that links the C++ runtime
+    statically: the shared build's objects linked with the Makefile's flags
+    and ``-static-libstdc++``, as a compiler whose library directory holds
+    only ``libstdc++.a`` would link them. Returns its path."""
+    from torchft_tpu_torch import coordination
+
+    bin_dir.mkdir()
+    lib = bin_dir / coordination.ENGINE_LIBRARY
+    objects = [str(coordination._BIN_DIR / f"{o}.o") for o in ("collectives", "net", "chaos")]
+    subprocess.run(
+        [sysconfig.get_config_var("CXX"), *_makefile_cxxflags(), "-static-libstdc++",
+         "-shared", *objects, "-o", str(lib)],
+        check=True, capture_output=True,
+    )
+    assert "libstdc++.so.6" not in _native.needed_libraries(lib)
+    return lib
+
+
+def _point_the_port_at(monkeypatch, bin_dir):
+    """``coordination._BIN_DIR`` at ``bin_dir`` (whose control plane counts
+    as built), and ``_native``'s cached library and error reset; all put
+    back after the test, so other tests keep the shared library."""
+    from torchft_tpu_torch import coordination
+
+    monkeypatch.setattr(coordination, "_BIN_DIR", bin_dir)
+    monkeypatch.setattr(coordination, "_BUILT_THIS_PROCESS", True)
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "_lib_error", None)
+
+
+@pytest.mark.timeout(180)
+def test_load_rebuilds_an_engine_with_a_static_cxx_runtime(store, tmp_path, monkeypatch):
+    """A stale library that links a static C++ runtime (make rebuilds
+    nothing when only the compiler changed) is rebuilt with Python's
+    compiler before it is loaded, and the engine then runs a two-rank
+    allreduce and a flight-recorder snapshot. Only ``tmp_path`` is
+    written: the shared build directory is left as it is."""
+    bin_dir = tmp_path / "bin"
+    lib = _plant_static_runtime_engine(bin_dir)
+    _point_the_port_at(monkeypatch, bin_dir)
+    _native._load()
+    assert "libstdc++.so.6" in _native.needed_libraries(lib)
+    assert (bin_dir / "collectives.o").exists()  # rebuilt, objects included
+    groups = _make_group(store, 2, prefix="static-rt")
+    out = _allreduce_all(
+        groups, [np.full(1000, r + 1.0, np.float32) for r in range(2)],
+        ReduceOp.SUM, shutdown=False,
+    )
+    try:
+        for arr in out:
+            np.testing.assert_array_equal(arr, np.full(1000, 3.0, np.float32))
+        for g in groups:
+            snap = g._engine.fr_snapshot(0)
+            assert [r["op"] for r in snap["records"]] == ["allreduce"], snap
+    finally:
+        for g in groups:
+            g.shutdown()
+
+
+def test_load_raises_when_the_rebuild_keeps_the_static_runtime(tmp_path, monkeypatch):
+    """Where the rebuild cannot fix the library (here a make that builds
+    nothing), ``_load`` raises, naming the library, and caches the error:
+    there is no quiet fallback to the Python ring."""
+    from torchft_tpu_torch import coordination
+
+    lib = _plant_static_runtime_engine(tmp_path / "bin")
+    _point_the_port_at(monkeypatch, tmp_path / "bin")
+    calls = []
+
+    def make_nothing(argv, **kw):
+        calls.append(argv)
+        return subprocess.CompletedProcess(argv, 0, "", "")
+
+    monkeypatch.setattr(coordination.subprocess, "run", make_nothing)
+    with pytest.raises(RuntimeError, match=str(lib)):
+        _native._load()
+    (argv,) = calls
+    assert "-B" in argv and argv[-1] == str(lib)
+    assert not _native.is_available()
+    with pytest.raises(RuntimeError, match="native collective engine unavailable"):
+        ProcessGroupNative()
 
 
 # -- core collectives --------------------------------------------------------
@@ -548,16 +655,20 @@ def test_native_kill_heal_drill(tmp_path):
 @pytest.mark.timeout(240)
 def test_runner_drill_over_native_rehearses_the_card_phase(tmp_path, monkeypatch):
     """The CPU rehearsal of ``chip_smoke.py``'s orchestration phase with
-    ``TORCHFT_PG=native`` in both groups: llama_debug under the runner,
-    group 1 killed through the lighthouse after step 3 and relaunched once,
-    both groups ending at step 8 in the same bits, the gradient allreduce
-    journaled by the engine's group, and the kill one recovery episode with
-    group 1 its primary."""
+    ``TORCHFT_PG=native``, four stripes a link and a seeded reset of
+    stripe 1 in both groups' step 7: llama_debug under the runner, group 1
+    killed through the lighthouse after step 3 and relaunched once, both
+    groups ending at step 8 in the same bits, the gradient allreduce
+    journaled by the engine's group, the kill one recovery episode with
+    group 1 its primary, and ``drill.fault_planes``: the reset absorbed by
+    a stripe handoff on both ends of a committed step, each group's goodput
+    ledger tiling its wall (group 1 with down and heal seconds), and both
+    groups' digests at the lighthouse."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the trainers inherit it
     out = runner_kill_heal_drill(
         ["--model", "debug", "--steps", "8", "--device", "cpu"],
         str(tmp_path / "results"), str(tmp_path / "logs"),
-        env={"TORCHFT_PG": "native"},
+        env=FAULT_PLANES_ENV,
     )
     r0, r1 = out["results"][0], out["results"][1]
     assert out["restarts"] == {0: 0, 1: 1}
@@ -576,6 +687,13 @@ def test_runner_drill_over_native_rehearses_the_card_phase(tmp_path, monkeypatch
     )
     episode = kill_episode(out["journal_dir"], 1)
     assert episode["ttr_s"] > 0 and episode["max_step"] > 0
+    planes = fault_planes(out)
+    assert planes["failover_steps"] == [7]
+    assert {f["stripe"] for rows in planes["failovers"].values() for f in rows} == {1}
+    assert {row["incarnations"] for row in planes["goodput"].values()} == {1, 2}
+    # Group 0 (one incarnation) through the JAX package's goodput tool.
+    report = goodput_report.analyze(events)
+    assert report["replicas"]["0"] == planes["goodput"]["0"]
 
 
 @pytest.mark.timeout(240)

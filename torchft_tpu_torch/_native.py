@@ -96,6 +96,53 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tft_chaos_set_link.argtypes = [CP, CP]
 
 
+# The shared C++ runtime that this process already holds. A library that
+# carries a static copy of it instead crashed in its first use of iostreams
+# (``fr_snapshot`` formatting a double).
+_CXX_RUNTIME = "libstdc++.so.6"
+
+_SHT_DYNAMIC, _DT_NULL, _DT_NEEDED = 6, 0, 1
+
+
+def needed_libraries(path) -> List[str]:
+    """The ``DT_NEEDED`` entries of the 64-bit little-endian ELF file at
+    ``path``: the shared libraries it links, read from its ``.dynamic``
+    section and the string table that section names. Raises
+    ``RuntimeError`` if the file is not such an ELF file."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(64)
+        if head[:4] != b"\x7fELF" or head[4] != 2 or head[5] != 1:
+            raise RuntimeError(f"{path} is not a 64-bit little-endian ELF file")
+        shoff, = struct.unpack_from("<Q", head, 0x28)
+        shentsize, shnum = struct.unpack_from("<HH", head, 0x3A)
+        f.seek(shoff)
+        table = f.read(shentsize * shnum)
+        # (sh_type, sh_offset, sh_size, sh_link) of each section header.
+        sections = []
+        for i in range(shnum):
+            fields = struct.unpack_from("<IIQQQQIIQQ", table, i * shentsize)
+            sections.append((fields[1], fields[4], fields[5], fields[6]))
+
+        def read(section):
+            f.seek(section[1])
+            return f.read(section[2])
+
+        dynamic = [s for s in sections if s[0] == _SHT_DYNAMIC]
+        if len(dynamic) != 1:
+            raise RuntimeError(f"{path} has {len(dynamic)} dynamic sections")
+        entries = read(dynamic[0])
+        strtab = read(sections[dynamic[0][3]])
+    names = []
+    for tag, value in struct.iter_unpack("<qQ", entries):
+        if tag == _DT_NULL:
+            break
+        if tag == _DT_NEEDED:
+            names.append(strtab[value:strtab.index(b"\0", value)].decode())
+    return names
+
+
 def _load() -> ctypes.CDLL:
     global _lib, _lib_error
     with _lib_lock:
@@ -107,7 +154,17 @@ def _load() -> ctypes.CDLL:
             from torchft_tpu_torch import coordination
 
             coordination._ensure_built()
-            path = coordination._BIN_DIR / "libtftcollectives.so"
+            path = coordination._BIN_DIR / coordination.ENGINE_LIBRARY
+            if _CXX_RUNTIME not in needed_libraries(path):
+                # Built by a compiler that linked its own copy of the C++
+                # runtime (make rebuilt nothing when only CXX changed):
+                # rebuild it, objects included, with Python's compiler.
+                coordination._make(coordination.ENGINE_LIBRARY, always=True)
+                if _CXX_RUNTIME not in needed_libraries(path):
+                    raise RuntimeError(
+                        f"{path} does not link the shared C++ runtime "
+                        f"({_CXX_RUNTIME}), even rebuilt with Python's compiler"
+                    )
             lib = ctypes.CDLL(str(path))
             _declare(lib)
         except (OSError, RuntimeError) as e:

@@ -50,7 +50,9 @@ _BUILD_LOCK = threading.Lock()
 
 
 _BUILT_THIS_PROCESS = False
-_BUILD_TARGETS = ("bin/lighthouse", "bin/torchft_manager", "bin/libtftcollectives.so")
+ENGINE_LIBRARY = "libtftcollectives.so"
+# The Makefile's targets this package runs, by file name under ``_BIN_DIR``.
+_BUILD_TARGETS = ("lighthouse", "torchft_manager", ENGINE_LIBRARY)
 
 
 def _python_cxx() -> Optional[str]:
@@ -73,6 +75,37 @@ def _python_cxx() -> Optional[str]:
     return cxx
 
 
+def _make(*targets: str, always: bool = False) -> None:
+    """``make`` of ``targets`` (file names under ``_BIN_DIR``) with Python's
+    compiler, ``BIN`` set to ``_BIN_DIR`` (so the directory built is the
+    directory loaded from), under the file lock beside that directory.
+    ``always`` adds ``-B``: every prerequisite is rebuilt, whatever its
+    age. Raises ``RuntimeError`` if make fails."""
+    import fcntl
+
+    cxx = _python_cxx()
+    argv = [
+        "make", "-j4", *(["-B"] if always else []),
+        *([f"CXX={cxx}"] if cxx else []), f"BIN={_BIN_DIR}",
+        *(str(_BIN_DIR / t) for t in targets),
+    ]
+    with _BUILD_LOCK:
+        _BIN_DIR.parent.mkdir(parents=True, exist_ok=True)
+        with open(_BIN_DIR.parent / ".build.lock", "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            try:
+                proc = subprocess.run(
+                    argv, cwd=_CPP_DIR, capture_output=True, text=True
+                )
+            finally:
+                fcntl.flock(lock_file, fcntl.LOCK_UN)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"failed to build torchft_tpu C++ control plane into {_BIN_DIR}:\n"
+            f"{proc.stderr}"
+        )
+
+
 def _ensure_built() -> None:
     """Builds the C++ control plane on first use (idempotent; safe across
     concurrent processes via a file lock on the build directory). Always
@@ -82,7 +115,6 @@ def _ensure_built() -> None:
     global _BUILT_THIS_PROCESS
     if _BUILT_THIS_PROCESS:
         return
-    import fcntl
     import shutil
 
     if shutil.which("make") is None:
@@ -95,30 +127,10 @@ def _ensure_built() -> None:
             "torchft_tpu C++ control plane is not built and `make` is not "
             f"on PATH; prebuild {_BIN_DIR} or install a toolchain"
         )
-
-    cxx = _python_cxx()
-    with _BUILD_LOCK:
-        lock_path = _CPP_DIR / ".build.lock"
-        with open(lock_path, "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)
-            try:
-                # The binaries this package runs, not the C++ tests that
-                # ``all`` adds: half the time of a fresh build.
-                proc = subprocess.run(
-                    ["make", "-j4", *([f"CXX={cxx}"] if cxx else []),
-                     *_BUILD_TARGETS],
-                    cwd=_CPP_DIR,
-                    capture_output=True,
-                    text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        "failed to build torchft_tpu C++ control plane:\n"
-                        f"{proc.stderr}"
-                    )
-                _BUILT_THIS_PROCESS = True
-            finally:
-                fcntl.flock(lock_file, fcntl.LOCK_UN)
+    # The binaries this package runs, not the C++ tests that ``all`` adds:
+    # half the time of a fresh build.
+    _make(*_BUILD_TARGETS)
+    _BUILT_THIS_PROCESS = True
 
 
 def advertise_host() -> str:

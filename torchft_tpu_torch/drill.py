@@ -13,7 +13,8 @@ and by the CPU integration tests:
   ``orchestration.ReplicaGroupRunner``: the kill goes through the
   lighthouse, and the runner, not the drill, relaunches the victim;
   :func:`kill_episode` reads the kill's recovery episode off the groups'
-  journals.
+  journals, and :func:`fault_planes` the drill's stripe failovers, goodput
+  ledger and fleet digests.
 
 A group is ``ranks_per_group`` processes (default 1), each launched with
 the torchrun environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and
@@ -388,6 +389,26 @@ def _lighthouse_replica_id(address: str, group: int) -> str:
 
 # Seconds a trainer may outlive its manager server before the runner kills it.
 _LIGHTHOUSE_KILL_GRACE_S = 2.0
+# Seconds between two reads of the lighthouse's fleet view during the drill.
+_FLEET_POLL_S = 0.25
+
+# The fault planes' drill environment (``fault_planes``): four stripes a
+# peer link, of a class without the int8 wire (which would move the bits),
+# and a seeded reset of every stripe-1 leg of both groups in the last step
+# (7), after the victim's heal; the engine hands each leg's range to a
+# live stripe inside the collective. Both ends reset their own legs: a
+# reset that only one end injects can abort a collective (ROADMAP.md
+# section 3).
+STRIPED_LINKS = "*=local,streams=4"
+STRIPE_RESET = "seed:7,spec:reset@data:match=|s1:step=7-7"
+FAULT_PLANES_ENV = {
+    "TORCHFT_PG": "native",
+    "TORCHFT_LINKS": STRIPED_LINKS,
+    "TORCHFT_CHAOS": STRIPE_RESET,
+    # A digest at every commit gate, so that the fleet samples see each
+    # group's step rate however short its run.
+    "TORCHFT_DIGEST_INTERVAL_S": "0",
+}
 
 
 def runner_kill_heal_drill(
@@ -409,13 +430,21 @@ def runner_kill_heal_drill(
 
     The runner's own journal (``log_dir/journal/runner.jsonl``) records
     each death it sees as a ``failure_signal`` with source ``proc_death``.
+    While the groups run, the lighthouse's fleet view is read every
+    ``_FLEET_POLL_S``; ``fleet`` keeps each group's newest row whose digest
+    has a step rate above 0, else its newest row with a digest (the
+    lighthouse drops a row when its replica leaves), with its
+    ``replica_id``.
     Returns ``{"results": {group: result JSON}, "restarts", "kill"
     ("lighthouse" or "runner": what ended the trainer), "kill_to_relaunch_s",
     "kill_ts" (the wall clock at the lighthouse kill, the journals'
-    clock), "wall_s", "restart_log", "proc_deaths", "journal_dir"}``;
-    raises if a group fails or
+    clock), "wall_s", "restart_log", "proc_deaths", "journal_dir",
+    "fleet" ({group: fleet row})}``; raises if a group fails or
     the drill outlasts 400 s. Every process it starts is stopped before it
     returns."""
+    import threading
+
+    from torchft_tpu_torch.coordination import LighthouseClient
     from torchft_tpu_torch.orchestration import (
         ReplicaGroupRunner,
         kill_via_lighthouse,
@@ -448,10 +477,32 @@ def runner_kill_heal_drill(
     )
     saved = os.environ.get("TORCHFT_JOURNAL_FILE")
     os.environ["TORCHFT_JOURNAL_FILE"] = str(runner_journal)
+    fleet: Dict[int, dict] = {}
+    stop_sampling = threading.Event()
+
+    def sample_fleet() -> None:
+        client = LighthouseClient(lighthouse.address())
+        try:
+            while not stop_sampling.wait(_FLEET_POLL_S):
+                try:
+                    rows = client.fleet(timeout=5.0)["replicas"]
+                except Exception:  # noqa: BLE001 - the next poll retries
+                    continue
+                for rid, row in rows.items():
+                    slot = rid.split(":", 1)[0]
+                    rate = (row.get("digest") or {}).get("rate") or 0
+                    kept = (fleet.get(int(slot), {}).get("digest") or {}).get("rate") or 0
+                    if row.get("digest") and slot.isdigit() and (rate > 0 or not kept):
+                        fleet[int(slot)] = {**row, "replica_id": rid}
+        finally:
+            client.close()
+
+    sampler = threading.Thread(target=sample_fleet, name="fleet-sampler", daemon=True)
     t0 = time.monotonic()
     deadline = t0 + 400.0
     try:
         runner.start()
+        sampler.start()
         first_log = logs / "replica1_rank0.r0.log"
         while "[group 1] step 3 loss" not in (
             first_log.read_text(errors="replace") if first_log.exists() else ""
@@ -488,6 +539,9 @@ def runner_kill_heal_drill(
                 f"{runner.restarts}); see {logs}"
             )
     finally:
+        stop_sampling.set()
+        if sampler.is_alive():
+            sampler.join(10)
         runner.stop()
         lighthouse.shutdown()
         if saved is None:
@@ -514,6 +568,7 @@ def runner_kill_heal_drill(
             and e["attrs"].get("source") == "proc_death"
         ],
         "journal_dir": str(journal),
+        "fleet": dict(fleet),
     }
 
 
@@ -548,3 +603,70 @@ def kill_episode(journal_dir: str, group: int) -> dict:
     if errors:
         raise RuntimeError(f"episode {episode['id']} fails its check: {errors}")
     return episode
+
+
+def fault_planes(out: dict, victim: int = 1) -> dict:
+    """The fault-tolerance planes of a :func:`runner_kill_heal_drill` run
+    (``out``) over ``TORCHFT_PG=native`` with a striped ``TORCHFT_LINKS``
+    and a seeded stripe reset in ``TORCHFT_CHAOS``, read off its journals
+    and its fleet samples:
+
+    - ``failovers``: the ``stripe_failover`` rows each group journaled,
+      with the steps (``s<step>`` of their trace) at which they happened;
+    - ``goodput``: each group's goodput ledger, ``telemetry.audit_goodput``
+      of its ``goodput_window`` events;
+    - ``fleet``: each group's newest digest at the lighthouse.
+
+    Raises ``AssertionError`` unless both groups journaled a handoff to a
+    live stripe (``to_stripe`` >= 0) in one collective, that step committed
+    in both groups, each group's ledger tiles its accounted wall (no audit
+    problem, every kind in ``BADPUT_KINDS``), ``victim`` shows two
+    incarnations with ``down`` and ``heal`` seconds above 0, and the fleet
+    holds a digest of each group with a step rate above 0."""
+    from torchft_tpu_torch import telemetry
+
+    events = telemetry.load_journal(
+        sorted(str(f) for f in Path(out["journal_dir"]).glob("journal_replica*.jsonl"))
+    )
+
+    def slot(ev):
+        return str(ev.get("replica_id", "")).split(":", 1)[0]
+
+    failovers: Dict[str, List[dict]] = {}
+    commits: Dict[str, set] = {}
+    for ev in events:
+        if ev["event"] == "stripe_failover":
+            step = re.search(r"\.s(\d+)", ev.get("trace") or "")
+            failovers.setdefault(slot(ev), []).append(
+                {**ev["attrs"], "step": int(step.group(1)) if step else None}
+            )
+        elif ev["event"] == "commit_gate" and (ev.get("attrs") or {}).get("committed"):
+            commits.setdefault(slot(ev), set()).add(ev.get("step"))
+    handed = {
+        g: {f["step"] for f in rows if f.get("to_stripe", -1) >= 0}
+        for g, rows in failovers.items()
+    }
+    both = sorted(set.intersection(*(handed.get(str(g), set()) for g in (0, 1))))
+    if not both:
+        raise AssertionError(
+            f"stripe_failover: no step with a handoff journaled by both groups ({handed})"
+        )
+    for step in both:
+        for g in ("0", "1"):
+            if step not in commits.get(g, set()):
+                raise AssertionError(f"stripe_failover at step {step}: group {g} did "
+                                     "not commit that step")
+    # The audit's problems include every kind outside BADPUT_KINDS and every
+    # window or incarnation that does not tile.
+    rows, problems = telemetry.audit_goodput(events)
+    if problems or sorted(rows) != ["0", "1"]:
+        raise AssertionError(f"goodput ledger: groups {sorted(rows)}, problems {problems}")
+    hit = rows[str(victim)]
+    if hit["incarnations"] != 2 or not (hit["badput_s"]["down"] > 0
+                                       and hit["badput_s"]["heal"] > 0):
+        raise AssertionError(f"goodput ledger: group {victim} {hit}")
+    fleet = {g: row["digest"] for g, row in out["fleet"].items()}
+    if sorted(fleet) != [0, 1] or not all(d.get("rate", 0) > 0 for d in fleet.values()):
+        raise AssertionError(f"fleet digests at the lighthouse: {fleet}")
+    return {"failovers": failovers, "failover_steps": both, "goodput": rows,
+            "fleet": fleet}

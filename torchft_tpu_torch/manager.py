@@ -369,6 +369,9 @@ class Manager:
     def load_state_dict(self, state_dict: Dict[str, int]) -> None:
         self._step = state_dict["step"]
         self._batches_committed = state_dict["batches_committed"]
+        # A heal moves the step after start_quorum pinned it: step-window
+        # chaos rules must see the step this replica now runs.
+        _chaos.set_step(self._step)
 
     def disallow_state_dict_read(self) -> None:
         """Write-locks the state dict while the optimizer mutates parameters

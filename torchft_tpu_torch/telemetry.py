@@ -1962,6 +1962,88 @@ def check_episodes(episodes: List[Dict[str, Any]]) -> List[str]:
     return errs
 
 
+def audit_goodput(
+    events: List[Dict[str, Any]],
+) -> Tuple[Dict[str, Dict[str, Any]], List[str]]:
+    """The ``goodput_window`` events of a journal, audited per replica slot
+    as the JAX package's ``tools/goodput_report.py`` audits them: returns
+    ``({slot: account row}, problems)``. A slot is the replica id before
+    its ``:`` (a relaunch keeps its slot), and a slot's windows split into
+    incarnations where the replica id changes (a relaunch journals under a
+    fresh ``<slot>:<uuid>``) or the ledger's ``total_s`` falls back. The
+    JAX package's tool splits only where ``total_s`` falls back, so it
+    merges a relaunch whose first window closes later in its process than
+    the killed incarnation's last one did (ROADMAP.md section 3). Problems: a
+    residual or split outside :data:`BADPUT_KINDS`, a negative window,
+    splits that do not sum to their window, and windows that do not sum to
+    their incarnation's total, each beyond :data:`TILE_EPS_S`. A row holds
+    ``windows``, ``committed_windows``, ``incarnations``, ``down_s`` (the
+    gaps between incarnations, charged to ``down``), ``accounted_s``,
+    ``goodput_frac`` and ``badput_s`` by kind."""
+    slots: Dict[str, List[Dict[str, Any]]] = {}
+    for ev in events:
+        if ev.get("event") == "goodput_window":
+            slots.setdefault(str(ev.get("replica_id")).split(":", 1)[0], []).append(ev)
+    rows: Dict[str, Dict[str, Any]] = {}
+    problems: List[str] = []
+    for rid, wins in sorted(slots.items()):
+        wins.sort(key=lambda ev: float(ev.get("ts", 0.0)))
+        acct = {k: 0.0 for k in BADPUT_KINDS}
+        segments: List[Dict[str, Any]] = []
+        prev_total = prev_id = None
+        for ev in wins:
+            a = ev.get("attrs") or {}
+            ts = float(ev.get("ts", 0.0))
+            dur, total = float(a.get("dur_s", 0.0)), float(a.get("total_s", 0.0))
+            splits = a.get("splits") or {}
+            if a.get("residual") not in BADPUT_KINDS:
+                problems.append(f"{rid}: window @{ts:.3f} has residual "
+                                f"{a.get('residual')!r} outside BADPUT_KINDS")
+            unknown = [k for k in splits if k not in BADPUT_KINDS]
+            if unknown:
+                problems.append(f"{rid}: window @{ts:.3f} splits carry unknown "
+                                f"kind(s) {unknown}")
+            if dur < -TILE_EPS_S:
+                problems.append(f"{rid}: window @{ts:.3f} negative dur_s {dur}")
+            ssum = sum(float(v) for v in splits.values())
+            if abs(ssum - dur) > TILE_EPS_S:
+                problems.append(f"{rid}: window @{ts:.3f} splits sum {ssum:.9f}s "
+                                f"!= dur_s {dur:.9f}s")
+            if (not segments or ev.get("replica_id") != prev_id
+                    or total < prev_total - TILE_EPS_S):
+                # The ledger's origin: the window closed at ts with total
+                # seconds accounted since the process started.
+                segments.append({"t_origin": ts - total, "dur_sum": 0.0, "n": 0,
+                                 "committed": 0})
+            seg = segments[-1]
+            seg.update(t_last=ts, last_total=total, dur_sum=seg["dur_sum"] + dur,
+                       n=seg["n"] + 1, committed=seg["committed"] + bool(a.get("committed")))
+            prev_total, prev_id = total, ev.get("replica_id")
+            for k in BADPUT_KINDS:
+                if k in splits:
+                    acct[k] += float(splits[k])
+        down_s = 0.0
+        for i, seg in enumerate(segments):
+            err = abs(seg["dur_sum"] - seg["last_total"])
+            if err > max(TILE_EPS_S, 1e-9 * seg["last_total"]):
+                problems.append(f"{rid}: incarnation {i} windows sum {seg['dur_sum']:.9f}s "
+                                f"!= ledger total {seg['last_total']:.9f}s")
+            if i > 0:
+                down_s += max(seg["t_origin"] - segments[i - 1]["t_last"], 0.0)
+        acct["down"] += down_s
+        total_s = sum(acct.values())
+        rows[rid] = {
+            "windows": sum(s["n"] for s in segments),
+            "committed_windows": sum(s["committed"] for s in segments),
+            "incarnations": len(segments),
+            "down_s": round(down_s, 6),
+            "accounted_s": round(total_s, 6),
+            "goodput_frac": round(acct["compute"] / total_s, 6) if total_s > 0 else None,
+            "badput_s": {k: round(v, 6) for k, v in acct.items()},
+        }
+    return rows, problems
+
+
 def load_journal(paths: List[str]) -> List[Dict[str, Any]]:
     """Every event of the journal files (or directories of ``*.jsonl``) in
     ``paths``, sorted by timestamp, as the JAX package's

@@ -5,7 +5,7 @@
 Any failure of a phase exits non-zero and prints no result line. The
 schedule: phases 1-5 and then the bench (18) run alone, since they time the
 card; then phases 6-17 and 20 run as ``drill_phases``: three lanes of
-drills side by side (6 then 16; 7, 8 and 12's drill; 15, 9 and 11) beside
+drills side by side (6, 16, 16a; 7, 8 and 12's drill; 15, 9 and 11) beside
 13's and 14's drills and then the in-process phases (10, 12's and 14's
 checks, 17, 20) on the main thread; then 19 alone (it sets this process's
 environment, which any process started meanwhile would inherit), 19a, and
@@ -166,6 +166,20 @@ kernels line. The phases:
    parameters (the batch of step k is seeded by k). Prints the drill's wall
    time and each snapshot's copy and write seconds; the snapshots
    (~1.50 GB each, up to 3 a group) are deleted after the phase.
+16a. The live fleet plane (``drill.fleet_plane_drill`` on ``cuda``, the
+   twin of the JAX package's ``tools/obs_fleet_smoke.py``): two port demo
+   trainers (40 steps of 0.25 s) against a lighthouse with a 30 s
+   heartbeat timeout, group 1's manager stalling each heartbeat 1.5 s,
+   and the port's exporter serving beside them. Group 1 must be flagged a
+   straggler with ``hb_jitter`` while it runs, ``python -m
+   torchft_tpu_torch.obs_top --once --check`` exit 0, a live ``/metrics``
+   body show the exporter up, one straggler and group 1's ``hb_jitter``
+   gauge, and the exporter exit 0 on SIGINT with ``hb_jitter`` anomalies
+   and every scrape seen in its journal. Planted faults: ``check_frame`` on
+   the frame without group 1's ``STRAGGLER`` tag, and the gauge check on
+   ``render_fleet_prometheus`` of the live fleet without group 1's
+   ``hb_jitter`` flag, must both fail. Prints the seconds to the flag, its
+   flags, the anomalies, the scrapes and the drill's wall.
 17. Train step: ``make_train_step`` at llama_small's widths (B=8, S=1024,
    flash, one NCCL rank) at ``accum_steps`` 1 and 2 from the same seed's
    ``init_train_state``, each held to the mesh-free model (``grad_step`` +
@@ -221,8 +235,18 @@ kernels line. The phases:
    step rate above 0 in the lighthouse's fleet view (read during the
    drill). Before the drill, a planted fault (every stripe of a 4 MiB
    allreduce of two engine ranks of this process reset) must abort and
-   latch and be refused by the failover check. Prints one line each and
-   the phase's wall.
+   latch and be refused by the failover check. The port's exporter serves
+   beside the drill (``exporter``): it must exit 0 on SIGINT after at
+   least 10 scrapes, its journaled quorum id never fall, and its last
+   sample count a leave and a join (the kill, the relaunch's fresh id);
+   ``obs_top --once --check`` must exit 0 with a row for each group whose
+   ``BWmin`` is a number; the live ``/metrics`` must show the exporter up,
+   two replicas and each group's step rate; and ``obs_export --once
+   --journal`` over the groups' journal must print each group's per-peer
+   GiB/s in both directions, equal to the last ``native_counters`` event's
+   bytes over busy seconds divided by its four streams. Planted fault:
+   ``check_frame`` on the frame without group 1's row must report it.
+   Prints one line each and the phase's wall.
 19a. Journal reports, no drill of its own: ``python -m
    torchft_tpu_torch.perf_report <journal> --check --json --emit ...`` and
    ``python -m torchft_tpu_torch.recovery_report <journal> --check
@@ -266,7 +290,10 @@ kernels line. The phases:
    slowest replica and dominant phase per step, its stalls with their
    threshold, each replica's bounding lane and GiB/s, the goodput rollup,
    the ledger's goodput, retention and fault cost by kind, the injections
-   with their phases and each trace's event and span counts.
+   with their phases and each trace's event and span counts. Then phase
+   19's bandwidth three ways: each group's ``obs_top`` ``BWmin``, the
+   exporter's per-peer GiB/s and the bounding lane, with their
+   normalisations.
 20. Baby group: two Managers in threads of this process against an
    in-process lighthouse, each over ``ProcessGroupBabySocket``, on buffers
    of llama_small's parameter shapes on the card (a seed a replica): the
@@ -2797,11 +2824,13 @@ def orchestration_phase(path: dict) -> dict:
     phases tile its time to recover. With ``drill.FAULT_PLANES_ENV`` in
     both groups, ``drill.fault_planes`` must hold the stripe failover, the
     goodput ledger and the fleet digests (module docstring), and a planted
-    all-stripes reset (``planted_stripe_kill``) must be refused. Prints the
-    time to recover, its phases, each group's median allreduce beside
-    phase 6's (``path``, the socket ring), one line for each plane and the
-    phase's wall. Returns the drill's output with the episode and the
-    planes."""
+    all-stripes reset (``planted_stripe_kill``) must be refused. The port's
+    exporter and dashboard watch the drill (``exporter``), and
+    ``fleet_views_reading`` must hold. Prints the time to recover, its
+    phases, each group's median allreduce beside phase 6's (``path``, the
+    socket ring), one line for each plane and view and the phase's wall.
+    Returns the drill's output with the episode, the planes and the fleet
+    views."""
     import shutil
 
     from torchft_tpu_torch.drill import (
@@ -2819,6 +2848,7 @@ def orchestration_phase(path: dict) -> dict:
     shutil.rmtree(result_dir, ignore_errors=True)
     out = runner_kill_heal_drill(
         PATH_ARGS, str(result_dir), str(result_dir / "logs"), env=FAULT_PLANES_ENV,
+        exporter=True,
     )
     if out["restarts"] != {0: 0, 1: 1}:
         raise AssertionError(f"{name}: runner restarts {out['restarts']}")
@@ -2894,6 +2924,7 @@ def orchestration_phase(path: dict) -> dict:
               f"group {g} ({out['fleet'][g]['replica_id']}): step {d['step']}, rate "
               f"{d['rate']} steps/s, gp {d.get('gp')}, chaos {d.get('chaos', 0)}"
               for g, d in sorted(planes["fleet"].items())), flush=True)
+    out["fleet_views"] = fleet_views_reading(name, out)
     print(f"{name} planted fault {planted['spec']}: {planted['errors']} rank(s) failed "
           f"their allreduce, latched {planted['latched']}, {planted['failovers']} "
           f"handoffs: the failover check refused it ({planted['refused']})", flush=True)
@@ -2989,6 +3020,198 @@ def planted_stripe_kill() -> dict:
     if not out["errors"] or not out["latched"]:
         raise AssertionError(f"phase 19: the planted all-stripes kill did not abort "
                              f"and latch: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fleet views: the port's exporter and dashboard (phases 16a and 19)
+# ---------------------------------------------------------------------------
+
+def frame_bw(frame: str) -> dict:
+    """{group: its row's ``BWmin`` cell} of an ``obs_top`` frame."""
+    from torchft_tpu_torch.drill import frame_rows
+
+    col = frame.splitlines()[1].split().index("BWmin")
+    return {g: row.split()[col] for g, row in frame_rows(frame).items()}
+
+
+def planted_frame_fault(label: str, fleet: dict, frame: str, broken: str, want: str) -> str:
+    """The port's ``check_frame`` on ``broken``, a copy of the live ``frame``
+    with a planted fault: raises unless it reports the problem ``want``,
+    which the live frame does not have. Returns the problem."""
+    from torchft_tpu_torch.obs_top import check_frame
+
+    if want in check_frame(fleet, frame):
+        raise AssertionError(f"{label}: the live frame already has {want!r}")
+    if broken == frame or want not in check_frame(fleet, broken):
+        raise AssertionError(f"{label}: the planted frame fault passed check_frame "
+                             f"({check_frame(fleet, broken)}); want {want!r}")
+    return want
+
+
+def native_peer_gauges(label: str, journal) -> dict:
+    """``python -m torchft_tpu_torch.obs_export --once --journal <journal>``
+    over an engine drill's journal. Raises unless it exits 0 with a
+    ``torchft_exporter_native_peer_gib_s`` line for both groups in both
+    directions, each equal to ``bytes / 2**30 / (busy_ns / n_streams /
+    1e9)`` (to the exporter's 4 places) recomputed here from the last
+    ``native_counters`` event of each replica in the same journal, with
+    ``drill.STRIPED_LINKS``' streams. Returns {(replica, peer, dir): GiB/s}."""
+    from torchft_tpu_torch.drill import STRIPED_LINKS
+    from torchft_tpu_torch.telemetry import _replica_key, load_journal
+
+    streams = int(re.search(r"streams=(\d+)", STRIPED_LINKS).group(1))
+
+    proc = journal_report("obs_export", "--once", "--journal", journal)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: obs_export --once --journal exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    line = re.compile(r'torchft_exporter_native_peer_gib_s\{replica="([^"]*)",'
+                      r'peer="([^"]*)",dir="(tx|rx)"\} (\S+)')
+    got = {m.groups()[:3]: m.group(4) for m in map(line.fullmatch, proc.stdout.splitlines())
+           if m}
+    last = {}
+    for e in load_journal([str(journal)]):
+        if e["event"] == "native_counters":
+            last[_replica_key(e)] = e["attrs"]
+    want = {}
+    for rid, c in last.items():
+        if c["n_streams"] != streams:
+            raise AssertionError(f"{label}: replica {rid} ran {c['n_streams']} streams")
+        for peer in c["peers"]:
+            for d in ("tx", "rx"):
+                busy = peer[f"{d}_busy_ns"] / c["n_streams"] / 1e9
+                want[(rid, str(peer["peer"]), d)] = (
+                    f"{peer[f'{d}_bytes'] / 2**30 / busy:.4f}" if busy > 0 else None)
+    pairs = sorted((rid, d) for rid, _, d in got)
+    if got != want or pairs != [("0", "rx"), ("0", "tx"), ("1", "rx"), ("1", "tx")]:
+        raise AssertionError(f"{label}: the exporter's per-peer GiB/s {got}, recomputed "
+                             f"from the last native_counters {want}")
+    return {k: float(v) for k, v in got.items()}
+
+
+def fleet_views_reading(label: str, out: dict) -> dict:
+    """Phase 19's exporter and dashboard (``runner_kill_heal_drill`` with
+    ``exporter``). Raises unless the exporter exited 0 on SIGINT after at
+    least 10 scrapes, its journaled ``quorum_id`` never fell, its last
+    sample counts a leave and a join (group 1's killed id, its relaunch's
+    fresh id), ``obs_top --once --check`` exited 0 with a row for each
+    group whose ``BWmin`` is a number (the engine's digests carry ``bw``),
+    the live ``/metrics`` body has the exporter up, two fleet replicas and
+    a step rate for each group, and ``native_peer_gauges`` holds over the
+    groups' journal. Planted fault: ``check_frame`` on the frame with
+    group 1's row removed must report it missing. Prints one line each;
+    returns the readings."""
+    from torchft_tpu_torch.drill import frame_rows
+
+    ex = out["exporter"]
+    ids = ex["quorum_ids"]
+    if ex["rc"] != 0 or ex["scrapes"] < 10:
+        raise AssertionError(f"{label}: the exporter exited {ex['rc']} after "
+                             f"{ex['scrapes']} scrapes; see {ex['journal']}")
+    if any(b < a for a, b in zip(ids, ids[1:])):
+        raise AssertionError(f"{label}: the exporter's quorum ids fell: {ids}")
+    if not (ex["leaves_total"] >= 1 and ex["joins_total"] >= 1):
+        raise AssertionError(f"{label}: the exporter's last sample has joins "
+                             f"{ex['joins_total']}, leaves {ex['leaves_total']}")
+    bw = frame_bw(ex.get("frame", "")) if ex.get("frame") else {}
+    if ex.get("obs_top_rc") != 0 or sorted(bw) != [0, 1] or not all(
+            re.fullmatch(r"\d+\.\d\d", v) for v in bw.values()):
+        raise AssertionError(f"{label}: obs_top --once --check exited "
+                             f"{ex.get('obs_top_rc')}, BWmin cells {bw}:\n{ex.get('frame')}"
+                             f"{ex.get('obs_top_stderr')}")
+    body = ex.get("metrics", "").splitlines()
+    rates = {g: [ln for ln in body if ln.startswith(
+        f'torchft_exporter_replica_step_rate{{job="default",replica="{g}:')] for g in (0, 1)}
+    if "torchft_exporter_up 1" not in body or (
+            'torchft_exporter_fleet_replicas{job="default"} 2' not in body) or not all(
+            rates.values()):
+        raise AssertionError(f"{label}: the live /metrics body:\n{ex.get('metrics')}")
+    gib_s = native_peer_gauges(label, out["journal_dir"])
+    row = frame_rows(ex["frame"])[1]
+    victim = next(rid for rid in ex["fleet"]["replicas"] if rid.startswith("1:"))
+    planted_frame_fault(
+        label, ex["fleet"], ex["frame"],
+        "\n".join(ln for ln in ex["frame"].splitlines() if ln != row) + "\n",
+        f"replica {victim!r} missing from rendered frame")
+    print(f"{label} exporter: exit {ex['rc']} on SIGINT after {ex['scrapes']} scrapes "
+          f"every 0.5 s; journaled quorum ids {sorted(set(ids))} (never falling), last "
+          f"sample joins_total {ex['joins_total']}, leaves_total {ex['leaves_total']}",
+          flush=True)
+    print(f"{label} obs_top --once --check: exit {ex['obs_top_rc']}, BWmin "
+          + ", ".join(f"group {g} {v} GiB/s" for g, v in sorted(bw.items()))
+          + "; /metrics: up 1, fleet_replicas 2, step rate "
+          + "; ".join(rates[g][0] for g in (0, 1)) + f"; planted fault (group 1's row "
+          f"removed) caught", flush=True)
+    print(f"{label} exporter --once --journal, per-peer GiB/s (bytes / (busy_ns / "
+          f"n_streams), each direction, the incarnation's last native_counters): "
+          + ", ".join(f"group {r} peer {p} {d} {v}" for (r, p, d), v in sorted(gib_s.items()))
+          + "; equal to the journal's counters", flush=True)
+    return {"bw": bw, "gib_s": gib_s, "quorum_ids": sorted(set(ids)),
+            "joins_total": ex["joins_total"], "leaves_total": ex["leaves_total"],
+            "scrapes": ex["scrapes"]}
+
+
+def bandwidth_line(views: dict, lanes: dict) -> None:
+    """Prints phase 19's engine bandwidth three ways, each group's
+    ``obs_top`` ``BWmin`` (``views``: ``fleet_views_reading``'s) beside the
+    exporter's per-peer GiB/s and phase 19a's bounding lane (``lanes``:
+    ``obs_report``'s ``native_stall_attribution``), with each one's
+    normalisation."""
+    print("phase 19's bandwidth, three normalisations: "
+          + "; ".join(
+              f"group {g}: obs_top BWmin {views['bw'][g]} GiB/s (the digest's worst peer, "
+              "tx+rx bytes over tx+rx busy_ns / streams, live), exporter "
+              + ", ".join(f"{d} {v:.4f}" for (r, _, d), v in sorted(views["gib_s"].items())
+                          if r == str(g))
+              + " GiB/s (each direction's bytes over its busy_ns / streams, whole "
+              f"incarnation), 19a's bounding lane peer {lanes[str(g)]['peer']} stripe "
+              f"{lanes[str(g)]['stripe']} {lanes[str(g)]['dir']} "
+              f"{lanes[str(g)]['gib_s']} GiB/s (the slowest lane's bytes over its windows, "
+              "summed over the collectives it bounded)"
+              for g in (0, 1)), flush=True)
+
+
+def fleet_plane_phase() -> dict:
+    """Phase 16a: ``drill.fleet_plane_drill`` on the card (its own checks
+    raise), then two planted faults: the port's ``check_frame`` on the
+    live frame with group 1's ``STRAGGLER`` tag removed, and the drill's
+    gauge check (``drill.fleet_gauges_hold``) on ``render_fleet_prometheus``
+    of the live fleet with group 1's ``hb_jitter`` flag removed, must both
+    fail. Prints the seconds from the start to the straggler flag and its
+    flags, the anomalies journaled, the exporter's scrapes and the drill's
+    wall. Returns the drill's output."""
+    import copy
+    import shutil
+
+    from torchft_tpu_torch.drill import fleet_gauges_hold, fleet_plane_drill, frame_rows
+    from torchft_tpu_torch.obs_export import render_fleet_prometheus
+
+    name = "fleet plane"
+    work = OUT / name
+    shutil.rmtree(work, ignore_errors=True)
+    out = fleet_plane_drill(str(work), device="cuda")
+    rid = out["straggler"]["replica_id"]
+    row = frame_rows(out["frame"])[1]
+    planted_frame_fault(name, out["fleet"], out["frame"],
+                        out["frame"].replace(row, row.replace("STRAGGLER ", "")),
+                        f"replica {rid!r} is a straggler but its row has no STRAGGLER tag")
+    up = "torchft_exporter_up 1\n"
+    if not fleet_gauges_hold(render_fleet_prometheus(out["fleet"]) + up, rid):
+        raise AssertionError(f"{name}: the gauge check fails on the live fleet")
+    unflagged = copy.deepcopy(out["fleet"])
+    unflagged["replicas"][rid]["flags"].remove("hb_jitter")
+    if fleet_gauges_hold(render_fleet_prometheus(unflagged) + up, rid):
+        raise AssertionError(f"{name}: the gauge check passed a fleet without "
+                             f"{rid}'s hb_jitter flag")
+    print(f"{name}: group 1 ({rid}) flagged a straggler online at "
+          f"+{out['straggler']['t_s']:.3f} s with flags {out['straggler']['flags']}; "
+          f"obs_top --once --check exit {out['obs_top_rc']}; /metrics up 1, one "
+          f"straggler, hb_jitter gauge; the exporter exited {out['exporter_rc']} on "
+          f"SIGINT with {out['status_events']} lighthouse_status events "
+          f"({out['scrapes_seen']} seen live) and anomalies {out['anomalies']}; planted "
+          f"faults (the STRAGGLER tag, the hb_jitter flag) caught; drill wall "
+          f"{out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -3376,6 +3599,8 @@ def reports_phase(orchestration: dict, bench: dict) -> None:
             kill=name == "path"))
         (out_dir / f"{name}.json").write_text(json.dumps(reports[name], indent=1))
     unnamed_record_refused("reports phase 19, engine", orchestration["journal_dir"], out_dir)
+    bandwidth_line(orchestration["fleet_views"],
+                   reports["orchestration"]["timeline"]["native_stall_attribution"])
     mfu = reports["path"]["perf"]["mfu"]
     kinds = [m.get("device_kind") for m in reports["path"]["perf"]["perf_models"].values()]
     if not mfu or mfu["mfu"] is None or not 0 < mfu["mfu"] < 1 or kind not in kinds:
@@ -4427,7 +4652,8 @@ def pipeline_phase() -> dict:
 # small drills, when no more than two llama_small drills share the card
 # with them. ``drill_phases`` prints the card's peak memory in use.
 DRILL_LANES = (
-    (("path", flash_path_phase), ("preempt", preempt_phase)),
+    (("path", flash_path_phase), ("preempt", preempt_phase),
+     ("fleet_plane", fleet_plane_phase)),
     (("quantized", quantized_phase), ("ring", ring_phase), ("ulysses", ulysses_phase)),
     (("pg_sharded", pg_sharded_phase), ("diloco", diloco_phase), ("ddp", ddp_phase)),
 )
@@ -4475,7 +4701,10 @@ def drill_phases() -> dict:
         sampler.join(5)
     print(f"drills: {len(DRILL_LANES)} lanes beside the main thread, card memory "
           f"in use at most {peak[0] / 2**30:.1f} GiB of "
-          f"{torch.cuda.mem_get_info()[1] / 2**30:.1f}", flush=True)
+          f"{torch.cuda.mem_get_info()[1] / 2**30:.1f}; lane walls (s) "
+          + ", ".join(f"{'+'.join(n for n, _ in lane)} "
+                      f"{sum(PHASE_WALLS[n] for n, _ in lane):.1f}"
+                      for lane in (*DRILL_LANES, IN_PROCESS)), flush=True)
     out["path"], out["http_heal"] = out["path"]
     return out
 

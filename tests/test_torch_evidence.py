@@ -43,6 +43,9 @@ import obs_export  # noqa: E402
 import obs_top  # noqa: E402
 import recovery_report  # noqa: E402
 
+from torchft_tpu_torch import obs_export as port_export  # noqa: E402
+from torchft_tpu_torch import obs_top as port_top  # noqa: E402
+
 pytestmark = pytest.mark.timeout(60)
 
 
@@ -202,23 +205,31 @@ SIGNAL_FLEET = {
 }
 
 
-def _exporter_journal(log_cls, path):
+def _exporter_journal(log_cls, path, exporter=obs_export):
     fleet = json.loads(json.dumps(SIGNAL_FLEET))
     log = log_cls(str(path), replica_id="exporter")
-    cursor = obs_export.journal_signals(log, fleet, 0)
-    assert cursor == 3 and obs_export.journal_signals(log, fleet, cursor) == 3
-    mark = obs_export.journal_signal_overflow(log, fleet, 0)
-    assert mark == 2 and obs_export.journal_signal_overflow(log, fleet, mark) == 2
+    cursor = exporter.journal_signals(log, fleet, 0)
+    assert cursor == 3 and exporter.journal_signals(log, fleet, cursor) == 3
+    mark = exporter.journal_signal_overflow(log, fleet, 0)
+    assert mark == 2 and exporter.journal_signal_overflow(log, fleet, mark) == 2
     fleet["agg"]["signals_dropped"] = 5
-    assert obs_export.journal_signal_overflow(log, fleet, mark) == 5
+    assert exporter.journal_signal_overflow(log, fleet, mark) == 5
     log.close()
     return [{k: v for k, v in json.loads(line).items() if k != "ts"}
             for line in open(path)]
 
 
 def test_obs_export_journals_signals_through_the_port_event_log(tmp_path):
+    """The JAX tool on the port's ``EventLog``, and the port's exporter
+    (``torchft_tpu_torch.obs_export``) beside it: the same journal and the
+    same gauges."""
     lines = _exporter_journal(EventLog, tmp_path / "port.jsonl")
     assert lines == _exporter_journal(jtelemetry.EventLog, tmp_path / "jax.jsonl")
+    assert lines == _exporter_journal(EventLog, tmp_path / "twin.jsonl", port_export)
+    assert port_export.render_fleet_prometheus(SIGNAL_FLEET, max_replicas=64) == \
+        obs_export.render_fleet_prometheus(SIGNAL_FLEET, max_replicas=64)
+    assert port_export.journal_signals(None, None, 7) == 7
+    assert port_export.journal_signal_overflow(None, None, 7) == 7
     assert [ln["event"] for ln in lines] == [
         "failure_signal", "failure_signal", "signal_overflow", "signal_overflow"]
     assert lines[0]["attrs"]["source"] == "rpc_error"
@@ -251,6 +262,11 @@ def test_obs_top_signal_column_on_a_live_port_fleet(lighthouse):
     broken = frame.replace("native_abort", "-")
     assert any("SIGNAL column" in p or "recent-signals" in p
                for p in obs_top.check_frame(fleet, broken))
+    # The port's dashboard beside the JAX tool: the same frames and problems.
+    assert port_top.render(fleet, color=False) == frame
+    assert port_top.render(fleet, color=True) == obs_top.render(fleet, color=True)
+    assert port_top.check_frame(fleet, frame) == []
+    assert port_top.check_frame(fleet, broken) == obs_top.check_frame(fleet, broken)
 
 
 # -- the manager's evidence RPCs -------------------------------------------------------

@@ -37,6 +37,9 @@ import goodput_report  # noqa: E402
 import obs_export  # noqa: E402
 import obs_top  # noqa: E402
 
+from torchft_tpu_torch import obs_export as port_export  # noqa: E402
+from torchft_tpu_torch import obs_top as port_top  # noqa: E402
+
 pytestmark = pytest.mark.timeout(60)
 
 
@@ -425,10 +428,19 @@ def test_obs_top_renders_the_port_digests_ledger():
     assert " - " in plain
     broken = frame.replace(" he ", " -- ")
     assert any("worst-badput" in p for p in obs_top.check_frame(fleet, broken))
-    gp, glyph = obs_top._acct_view(json.loads(StepDigest(
-        step=1, rate=1.0, goodput=1.0, acct=_acct(compute=8.0, down=2.0)).to_json()))
+    dn = json.loads(StepDigest(
+        step=1, rate=1.0, goodput=1.0, acct=_acct(compute=8.0, down=2.0)).to_json())
+    gp, glyph = obs_top._acct_view(dn)
     assert gp == pytest.approx(80.0) and glyph == "dn"
     assert obs_top._acct_view({}) == (None, "-")
+    # The port's dashboard beside the JAX tool: the same frames, problems
+    # and cells.
+    assert port_top.render(fleet, color=False) == frame
+    assert port_top.render(fleet, color=True) == obs_top.render(fleet, color=True)
+    assert port_top.check_frame(fleet, frame) == []
+    assert port_top.check_frame(fleet, broken) == obs_top.check_frame(fleet, broken)
+    assert port_top._acct_view(dn) == (gp, glyph)
+    assert port_top._acct_view({}) == (None, "-")
 
 
 def test_obs_export_goodput_gauges_and_slo_journal_on_the_port_event_log(tmp_path):
@@ -439,16 +451,19 @@ def test_obs_export_goodput_gauges_and_slo_journal_on_the_port_event_log(tmp_pat
     assert 'torchft_exporter_fleet_badput_seconds{job="default",kind="heal"} 10' in text
     assert 'torchft_exporter_fleet_slo_burning{job="default"} 1' in text
     assert "coffee_break" not in text
+    assert port_export.render_fleet_prometheus(fleet) == text
     lines = {}
-    for name, log_cls in (("port", EventLog), ("jax", jtelemetry.EventLog)):
+    for name, log_cls, exporter in (("port", EventLog, obs_export),
+                                    ("jax", jtelemetry.EventLog, obs_export),
+                                    ("twin", EventLog, port_export)):
         path = tmp_path / f"{name}.jsonl"
         journal = log_cls(str(path), replica_id="exporter")
-        cur = obs_export.journal_slo_burns(journal, fleet, 0)
-        assert cur == 1 and obs_export.journal_slo_burns(journal, fleet, cur) == 1
+        cur = exporter.journal_slo_burns(journal, fleet, 0)
+        assert cur == 1 and exporter.journal_slo_burns(journal, fleet, cur) == 1
         journal.close()
         lines[name] = [{k: v for k, v in json.loads(ln).items() if k != "ts"}
                        for ln in path.read_text().splitlines()]
-    assert lines["port"] == lines["jax"]
+    assert lines["port"] == lines["jax"] == lines["twin"]
     assert [ln["event"] for ln in lines["port"]] == ["slo_burn"]
     assert lines["port"][0]["attrs"]["burn"] == pytest.approx(10.0)
 

@@ -474,3 +474,39 @@ def test_the_four_readers_run_with_jax_blocked(tmp_path):
     assert any(e["name"] == "thread_name" and e["args"]["name"] == "recovery"
                for e in doc["traceEvents"])
     assert any(e.get("cat") == "episode" and e["ph"] == "X" for e in doc["traceEvents"])
+
+
+def test_the_exporter_and_dashboard_run_with_jax_blocked(tmp_path):
+    """``python -m torchft_tpu_torch.obs_export --once --journal <journal>``
+    and ``python -m torchft_tpu_torch.obs_top --help`` in processes where
+    ``jax``, ``flax``, ``optax`` and ``torchft_tpu`` cannot be imported, as
+    on the card, exit 0 without importing torch; the exporter prints the
+    native engine's gauges of a synthetic journal of ``native_counters``
+    events, the JAX tool's text."""
+    import subprocess
+
+    from test_torch_obs_export import _counters_journal
+    from test_torch_perf_report import BLOCKED_RUN
+
+    import obs_export
+
+    journal = _counters_journal(str(tmp_path / "journal"), 4)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = {}
+    for module, args in (("obs_export", ["--once", "--journal", journal]),
+                         ("obs_top", ["--help"])):
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKED_RUN, f"torchft_tpu_torch.{module}", *args],
+            capture_output=True, text=True, timeout=120, cwd=repo,
+            env={**os.environ, "PYTHONPATH": repo},
+        )
+        assert proc.returncode == 0, module + proc.stdout[-2000:] + proc.stderr[-2000:]
+        out = proc.stdout.splitlines()
+        assert out[-1] == "torch not imported", module
+        outs[module] = out[:-1]
+    want = obs_export.render_native_prometheus(
+        obs_export.latest_native_counters(ref.load_events([journal])))
+    assert outs["obs_export"] == want.splitlines()
+    assert any(ln.startswith("torchft_exporter_native_peer_gib_s{") for ln in outs["obs_export"])
+    assert outs["obs_top"][0].startswith("usage: ")
+    assert any("--ttr-budget" in ln for ln in outs["obs_top"])

@@ -666,12 +666,16 @@ def test_runner_drill_over_native_rehearses_the_card_phase(tmp_path, monkeypatch
     groups' digests at the lighthouse. Phase 19a's reading too: the port's
     ``perf_report`` with the engine's lane rows, ``recovery_report``
     holding the kill's episode, and the timeline, goodput, detection and
-    trace readers with their planted faults."""
+    trace readers with their planted faults. And phase 19's fleet views:
+    the port's exporter beside the drill (its scrapes, never-falling
+    quorum ids, the kill's leave and the relaunch's join), ``obs_top
+    --once --check`` with both groups' bandwidth, the live ``/metrics``
+    and the exporter's per-peer GiB/s recomputed from the journal."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the trainers inherit it
     out = runner_kill_heal_drill(
         ["--model", "debug", "--steps", "8", "--device", "cpu"],
         str(tmp_path / "results"), str(tmp_path / "logs"),
-        env=FAULT_PLANES_ENV,
+        env=FAULT_PLANES_ENV, exporter=True,
     )
     r0, r1 = out["results"][0], out["results"][1]
     assert out["restarts"] == {0: 0, 1: 1}
@@ -715,6 +719,12 @@ def test_runner_drill_over_native_rehearses_the_card_phase(tmp_path, monkeypatch
     # Group 0 (one incarnation) through the JAX package's goodput tool.
     report = goodput_report.analyze(events)
     assert report["replicas"]["0"] == planes["goodput"]["0"]
+    views = chip_smoke.fleet_views_reading("cpu engine drill", out)
+    chip_smoke.bandwidth_line(views, reading["timeline"]["native_stall_attribution"])
+    assert views["leaves_total"] >= 1 and views["joins_total"] >= 1
+    assert sorted(views["bw"]) == [0, 1]
+    # The exporter journaled outside the groups' journal directory.
+    assert not list(Path(out["journal_dir"]).glob("exporter*"))
 
 
 @pytest.mark.timeout(240)

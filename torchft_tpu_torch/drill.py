@@ -14,7 +14,12 @@ and by the CPU integration tests:
   lighthouse, and the runner, not the drill, relaunches the victim;
   :func:`kill_episode` reads the kill's recovery episode off the groups'
   journals, and :func:`fault_planes` the drill's stripe failovers, goodput
-  ledger and fleet digests.
+  ledger and fleet digests; with ``exporter`` the port's exporter and
+  dashboard watch it;
+- :func:`fleet_plane_drill`: the live fleet plane (the twin of the JAX
+  package's ``tools/obs_fleet_smoke.py``): two demo trainers, one with a
+  stalled heartbeat, flagged a straggler while it runs, read through the
+  port's exporter and dashboard.
 
 A group is ``ranks_per_group`` processes (default 1), each launched with
 the torchrun environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and
@@ -411,9 +416,111 @@ FAULT_PLANES_ENV = {
 }
 
 
+def _tool_env() -> Dict[str, str]:
+    """The environment of a fleet tool (exporter, dashboard) the drills
+    start: this process's, with the repo on ``PYTHONPATH`` and without
+    ``TORCHFT_JOURNAL_FILE``, so that the tool's lighthouse client journals
+    nothing into a journal the drill reads."""
+    env = {k: v for k, v in os.environ.items() if k != "TORCHFT_JOURNAL_FILE"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(_REPO), os.environ.get("PYTHONPATH", "")) if p
+    )
+    return env
+
+
+def _start_exporter(
+    lighthouse: str, journal_file: Path, log: Path,
+    journals: Sequence[str] = (),
+) -> tuple:
+    """``python -m torchft_tpu_torch.obs_export`` in serving mode against
+    ``lighthouse`` on a free port, every ``_EXPORTER_INTERVAL_S``, with
+    ``--journal-file journal_file`` and a ``--journal`` for each of
+    ``journals``; its output goes to ``log``. Returns (the process, its
+    port) once ``/metrics`` answers; raises if it exits first."""
+    journal_file.parent.mkdir(parents=True, exist_ok=True)
+    journal_file.unlink(missing_ok=True)
+    port = _free_port()
+    cmd = [
+        sys.executable, "-m", "torchft_tpu_torch.obs_export",
+        "--lighthouse", lighthouse, "--port", str(port),
+        "--interval", str(_EXPORTER_INTERVAL_S), "--journal-file", str(journal_file),
+    ]
+    for j in journals:
+        cmd += ["--journal", str(j)]
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            cmd, cwd=str(_REPO), env=_tool_env(), stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True,
+        )
+    deadline = time.monotonic() + 60.0
+    while True:
+        try:
+            _get_metrics(port)
+            return proc, port
+        except OSError:
+            if proc.poll() is not None:
+                raise RuntimeError(f"the exporter exited {proc.returncode}; see {log}")
+            if time.monotonic() > deadline:
+                _stop(proc)
+                raise TimeoutError(f"the exporter never served /metrics; see {log}")
+            time.sleep(0.1)
+
+
+def _get_metrics(port: int) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+        return r.read().decode()
+
+
+def _stop_exporter(proc: subprocess.Popen) -> Optional[int]:
+    """SIGINTs the exporter (its way to stop: it returns 0 and closes its
+    journal) and returns its exit code; None if it had to be killed."""
+    if proc.poll() is None:
+        os.kill(proc.pid, signal.SIGINT)
+        try:
+            return proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            _stop(proc)
+            return None
+    return proc.returncode
+
+
+def _status_events(journal_file: Path) -> int:
+    """``lighthouse_status`` events in the exporter's journal so far."""
+    from torchft_tpu_torch.telemetry import load_journal
+
+    return sum(e["event"] == "lighthouse_status"
+               for e in load_journal([str(journal_file)]))
+
+
+def _obs_top_check(lighthouse: str) -> tuple:
+    """``python -m torchft_tpu_torch.obs_top --lighthouse <lighthouse>
+    --once --check``: (exit code, frame, stderr)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchft_tpu_torch.obs_top", "--lighthouse", lighthouse,
+         "--once", "--check"],
+        cwd=str(_REPO), env=_tool_env(), capture_output=True, text=True, timeout=60,
+    )
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def frame_rows(frame: str) -> Dict[int, str]:
+    """{replica slot: its row} of an ``obs_top`` frame (rows start with the
+    replica id, ``<slot>:<uuid>``)."""
+    rows = {}
+    for line in frame.splitlines():
+        slot = line.split(":", 1)[0]
+        if ":" in line and slot.isdigit():
+            rows[int(slot)] = line
+    return rows
+
+
+# The exporter's poll interval in the drills, seconds.
+_EXPORTER_INTERVAL_S = 0.5
+
+
 def runner_kill_heal_drill(
     trainer_args: Sequence[str], result_dir: str, log_dir: str,
-    env: Optional[Dict[str, str]] = None,
+    env: Optional[Dict[str, str]] = None, exporter: bool = False,
 ) -> dict:
     """Groups 0 and 1 of ``python -m torchft_tpu_torch.train_hsdp
     <trainer_args> --min-replicas 2 --result-dir <result_dir>``, one rank
@@ -441,7 +548,23 @@ def runner_kill_heal_drill(
     clock), "wall_s", "restart_log", "proc_deaths", "journal_dir",
     "fleet" ({group: fleet row})}``; raises if a group fails or
     the drill outlasts 400 s. Every process it starts is stopped before it
-    returns."""
+    returns.
+
+    With ``exporter``, the port's exporter (``obs_export``) serves beside
+    the drill for its whole life, every ``_EXPORTER_INTERVAL_S``, with its
+    journal in ``log_dir/exporter/exporter.jsonl`` (outside the groups'
+    journal directory, whose readings it must not move) and the groups'
+    journals as its ``--journal``. The first time a fleet sample shows both
+    groups with a step rate above 0, ``obs_top --once --check`` renders the
+    live fleet (again at a later such sample if its frame lacks a group's
+    row: a kill between the sample and the fetch) and one ``/metrics`` body
+    is kept (again until it holds a step rate for both groups). The
+    exporter is SIGINTed at the end. The result then also holds
+    ``"exporter"``: ``{"rc", "scrapes"`` (its ``lighthouse_status``
+    events), ``"quorum_ids"`` (each event's, in order), ``"joins_total",
+    "leaves_total"`` (its last event's), ``"obs_top_rc", "frame",
+    "obs_top_stderr", "fleet"`` (the sample the frame was taken at),
+    ``"metrics", "journal"}``."""
     import threading
 
     from torchft_tpu_torch.coordination import LighthouseClient
@@ -479,21 +602,46 @@ def runner_kill_heal_drill(
     os.environ["TORCHFT_JOURNAL_FILE"] = str(runner_journal)
     fleet: Dict[int, dict] = {}
     stop_sampling = threading.Event()
+    views: dict = {}
+    exporter_proc = exporter_port = None
+    exporter_journal = logs / "exporter" / "exporter.jsonl"
+
+    def take_views(payload: dict, rates: Dict[int, float]) -> None:
+        """The dashboard's frame and a ``/metrics`` body while both groups
+        run with a step rate above 0 (``payload``: this sample's fleet)."""
+        if sorted(g for g, r in rates.items() if r > 0) != [0, 1]:
+            return
+        if sorted(frame_rows(views.get("frame", ""))) != [0, 1]:
+            views["fleet"] = payload
+            views["obs_top_rc"], views["frame"], views["obs_top_stderr"] = (
+                _obs_top_check(lighthouse.address()))
+        if not all(f'replica_step_rate{{job="default",replica="{g}:' in views.get("metrics", "")
+                   for g in (0, 1)):
+            try:
+                views["metrics"] = _get_metrics(exporter_port)
+            except OSError:
+                pass
 
     def sample_fleet() -> None:
         client = LighthouseClient(lighthouse.address())
         try:
             while not stop_sampling.wait(_FLEET_POLL_S):
                 try:
-                    rows = client.fleet(timeout=5.0)["replicas"]
+                    payload = client.fleet(timeout=5.0)
+                    rows = payload["replicas"]
                 except Exception:  # noqa: BLE001 - the next poll retries
                     continue
+                rates = {}
                 for rid, row in rows.items():
                     slot = rid.split(":", 1)[0]
                     rate = (row.get("digest") or {}).get("rate") or 0
                     kept = (fleet.get(int(slot), {}).get("digest") or {}).get("rate") or 0
                     if row.get("digest") and slot.isdigit() and (rate > 0 or not kept):
                         fleet[int(slot)] = {**row, "replica_id": rid}
+                    if slot.isdigit():
+                        rates[int(slot)] = rate
+                if exporter:
+                    take_views(payload, rates)
         finally:
             client.close()
 
@@ -501,6 +649,11 @@ def runner_kill_heal_drill(
     t0 = time.monotonic()
     deadline = t0 + 400.0
     try:
+        if exporter:
+            exporter_proc, exporter_port = _start_exporter(
+                lighthouse.address(), exporter_journal,
+                logs / "exporter" / "exporter.log", [str(journal)],
+            )
         runner.start()
         sampler.start()
         first_log = logs / "replica1_rank0.r0.log"
@@ -541,7 +694,8 @@ def runner_kill_heal_drill(
     finally:
         stop_sampling.set()
         if sampler.is_alive():
-            sampler.join(10)
+            sampler.join(70)  # it may be in an obs_top run (60 s at most)
+        exporter_rc = None if exporter_proc is None else _stop_exporter(exporter_proc)
         runner.stop()
         lighthouse.shutdown()
         if saved is None:
@@ -554,7 +708,23 @@ def runner_kill_heal_drill(
         if r is None:
             raise RuntimeError(f"group {g} wrote no result in {result_dir}")
     events = [json.loads(line) for line in runner_journal.read_text().splitlines()]
+    extra = {}
+    if exporter:
+        from torchft_tpu_torch.telemetry import load_journal
+
+        status = [e["attrs"] for e in load_journal([str(exporter_journal)])
+                  if e["event"] == "lighthouse_status"]
+        extra["exporter"] = {
+            "rc": exporter_rc,
+            "scrapes": len(status),
+            "quorum_ids": [s["quorum_id"] for s in status],
+            "joins_total": status[-1]["joins_total"] if status else None,
+            "leaves_total": status[-1]["leaves_total"] if status else None,
+            "journal": str(exporter_journal),
+            **views,
+        }
     return {
+        **extra,
         "results": results,
         "restarts": runner.restarts,
         "kill": method,
@@ -670,3 +840,156 @@ def fault_planes(out: dict, victim: int = 1) -> dict:
         raise AssertionError(f"fleet digests at the lighthouse: {fleet}")
     return {"failovers": failovers, "failover_steps": both, "goodput": rows,
             "fleet": fleet}
+
+
+# The fleet-plane drill (``fleet_plane_drill``): the JAX package's
+# ``tools/obs_fleet_smoke.py`` run on the port's demo trainers. Group 1's
+# manager binary stalls each heartbeat RPC by 1.5 s: the declared cadence is
+# 100 ms, so the jitter budget (max(8x cadence, 1 s)) blows on every closed
+# gap, while its quorum and data planes run on: a straggler that is slow but
+# not dead.
+FLEET_STEPS = 40
+FLEET_STEP_SLEEP_S = 0.25
+FLEET_VICTIM = 1
+FLEET_VICTIM_CHAOS = "seed:7,spec:stall@ctrl:match=heartbeat:ms=1500"
+
+
+def fleet_plane_drill(work_dir: str, device: str = "cuda", timeout_s: float = 240.0) -> dict:
+    """The live fleet plane over two port demo trainers (``python -m
+    torchft_tpu_torch.orchestration.demo_trainer --steps 40 --dim 8
+    --min-replicas 2 --step-sleep 0.25 --device <device>``, rendered by
+    ``render_topology`` with their journals in ``work_dir/journal`` and
+    supervised by a ``ReplicaGroupRunner``, logs in ``work_dir/logs``)
+    against a lighthouse whose heartbeat timeout (30 s) is far above the
+    stall, group 1 under ``FLEET_VICTIM_CHAOS``, and the port's exporter
+    serving beside them (journal ``work_dir/journal/exporter.jsonl``).
+
+    While the trainers run, raises unless both groups appear in the fleet
+    table with a digest each, group 1 is flagged a straggler with
+    ``hb_jitter`` among its flags, ``python -m torchft_tpu_torch.obs_top
+    --once --check`` exits 0, and one ``/metrics`` body has
+    ``torchft_exporter_up 1``, one straggler in the default job and an
+    ``hb_jitter`` anomaly gauge for group 1's replica. At the end the
+    exporter, SIGINTed, must exit 0, and its journal, read with
+    ``telemetry.load_journal``, must hold ``hb_jitter`` anomalies and at
+    least as many ``lighthouse_status`` events as the drill counted while it
+    ran. Left out: the JAX smoke's digest duty-cycle A/B, which writes a
+    benchmark file.
+
+    Returns ``{"wall_s", "straggler": {"replica_id", "flags", "t_s"}
+    (seconds from the start), "fleet" (the fleet table it was read off, the
+    frame taken right after), "max_n_digest", "obs_top_rc", "frame",
+    "metrics", "scrapes_seen", "exporter_rc", "status_events",
+    "anomalies" ([(replica, kind)] journaled), "journal_dir"}``. Every
+    process it starts is stopped before it returns."""
+    from torchft_tpu_torch import obs_top
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.orchestration import ReplicaGroupRunner, render_topology
+    from torchft_tpu_torch.telemetry import load_journal
+
+    work = Path(work_dir).resolve()
+    journal_dir = work / "journal"
+    log_dir = work / "logs"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    exporter_journal = journal_dir / "exporter.jsonl"
+    victim = str(FLEET_VICTIM)
+    lighthouse = LighthouseServer(
+        bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=30000, quorum_tick_ms=50,
+        heartbeat_timeout_ms=30000,
+    )
+    addr = lighthouse.address()
+    specs = render_topology(
+        [sys.executable, "-m", "torchft_tpu_torch.orchestration.demo_trainer",
+         "--steps", str(FLEET_STEPS), "--dim", "8", "--min-replicas", "2",
+         "--step-sleep", str(FLEET_STEP_SLEEP_S), "--device", device],
+        num_replica_groups=2,
+        lighthouse_addr=addr,
+        env={"PYTHONUNBUFFERED": "1", "PYTHONPATH": _tool_env()["PYTHONPATH"]},
+        journal_dir=str(journal_dir),
+    )
+    for spec in specs:
+        if str(spec.replica_group) == victim:
+            spec.env["TORCHFT_CHAOS"] = FLEET_VICTIM_CHAOS
+    runner = ReplicaGroupRunner(specs, max_restarts=0, log_dir=str(log_dir))
+    exporter = None
+    out: dict = {"journal_dir": str(journal_dir), "max_n_digest": 0, "straggler": None,
+                 "fleet": None, "obs_top_rc": None, "frame": "", "metrics": "",
+                 "scrapes_seen": 0}
+    seen_both = finished = False
+    t0 = time.monotonic()
+    try:
+        exporter, port = _start_exporter(addr, exporter_journal, log_dir / "exporter.log")
+        runner.start()
+        deadline = t0 + timeout_s
+        while time.monotonic() < deadline:
+            running = runner.monitor_once()
+            alive = bool(runner.live_pids())
+            try:
+                fleet = obs_top.fetch_fleet(addr, timeout=5.0)
+            except Exception:  # noqa: BLE001 - the lighthouse may still boot
+                fleet = {}
+            replicas = fleet.get("replicas") or {}
+            if {"0", "1"} <= {str(rid).split(":", 1)[0] for rid in replicas}:
+                seen_both = True
+            out["max_n_digest"] = max(
+                out["max_n_digest"], int((fleet.get("agg") or {}).get("n_digest", 0)))
+            if alive and out["straggler"] is None:
+                for rid, row in replicas.items():
+                    if str(rid).startswith(victim + ":") and row.get("straggler"):
+                        out["straggler"] = {"replica_id": rid,
+                                            "flags": sorted(row.get("flags") or []),
+                                            "t_s": time.monotonic() - t0}
+                        out["fleet"] = fleet
+                        break
+            if out["straggler"] is not None and out["obs_top_rc"] is None:
+                out["obs_top_rc"], out["frame"], _ = _obs_top_check(addr)
+            if alive and out["straggler"] is not None and not fleet_gauges_hold(
+                    out["metrics"], out["straggler"]["replica_id"]):
+                try:
+                    out["metrics"] = _get_metrics(port)
+                except OSError:
+                    pass
+            if alive:
+                out["scrapes_seen"] = _status_events(exporter_journal)
+            if not running:
+                finished = runner.run_until_done(timeout=1)
+                break
+            time.sleep(0.5)
+    finally:
+        out["exporter_rc"] = None if exporter is None else _stop_exporter(exporter)
+        runner.stop()
+        lighthouse.shutdown()
+    out["wall_s"] = time.monotonic() - t0
+    events = load_journal([str(exporter_journal)])
+    out["status_events"] = sum(e["event"] == "lighthouse_status" for e in events)
+    out["anomalies"] = [(e["attrs"]["replica"], e["attrs"]["kind"])
+                        for e in events if e["event"] == "anomaly"]
+    _require(finished, f"the demo run did not finish cleanly; see {log_dir}")
+    _require(seen_both, "the fleet table never held both groups")
+    _require(out["max_n_digest"] >= 2,
+             f"digests from both groups expected, at most {out['max_n_digest']}")
+    _require(out["straggler"] is not None,
+             f"group {victim} was never flagged a straggler while the run was live")
+    _require("hb_jitter" in out["straggler"]["flags"],
+             f"hb_jitter not among the straggler's flags {out['straggler']['flags']}")
+    _require(out["obs_top_rc"] == 0, f"obs_top --once --check exited {out['obs_top_rc']}")
+    _require(fleet_gauges_hold(out["metrics"], out["straggler"]["replica_id"]),
+             f"no live /metrics body with the straggler's gauges:\n{out['metrics']}")
+    _require(out["exporter_rc"] == 0, f"the exporter exited {out['exporter_rc']} on SIGINT")
+    _require(any(kind == "hb_jitter" for _, kind in out["anomalies"]),
+             f"the exporter journaled no hb_jitter anomaly: {out['anomalies']}")
+    _require(out["status_events"] >= out["scrapes_seen"] > 0,
+             f"{out['status_events']} lighthouse_status events journaled, "
+             f"{out['scrapes_seen']} seen while the run was live")
+    return out
+
+
+def fleet_gauges_hold(metrics: str, straggler: str) -> bool:
+    """The fleet-plane drill's gauges in one ``/metrics`` body: the exporter
+    up, one straggler in the default job, and an ``hb_jitter`` anomaly
+    gauge for ``straggler``."""
+    lines = metrics.splitlines()
+    return ("torchft_exporter_up 1" in lines
+            and 'torchft_exporter_fleet_stragglers{job="default"} 1' in lines
+            and f'torchft_exporter_replica_anomaly{{job="default",replica="{straggler}",'
+                'kind="hb_jitter"} 1' in lines)

@@ -1,16 +1,18 @@
 """On-card smoke of the PyTorch port (torchft_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --drills N # the build, then phases 6-17, 20 and 20a N times
 
 Any failure of a phase exits non-zero and prints no result line. The
 schedule: phases 1-5 and then the bench (18) run alone, since they time the
 card, and 18a (the host's ledger and gate over the bench's round) after
-them; then phases 6-17 and 20 run as ``drill_phases``: three lanes of
-drills side by side (6, 16, 16a; 7, 8 and 12's drill; 15, 9 and 11) beside
-13's and 14's drills and then the in-process phases (10, 12's and 14's
-checks, 17, 20) on the main thread; then 19 alone (it sets this process's
-environment, which any process started meanwhile would inherit), 19a, and
-21 alone (its wall has a budget). Each phase's wall prints before the
+them; then phases 6-17, 20 and 20a run as ``drill_phases``: three lanes
+of drills side by side (6, 16, 16a; 7, 8 and 12's drill; 15, 9 and 11)
+beside 13's and 14's drills and then the in-process phases (10, 12's and
+14's checks, 17, 20, 20a) on the main thread, watched by the host watch;
+then 19 alone (it sets this process's environment, which any process
+started meanwhile would inherit), 19a, and 21 alone (its wall has a
+budget). Each phase's wall prints before the
 kernels line. The phases:
 
 1. The card's name and power limit (nvidia-smi); build every CUDA kernel of
@@ -327,7 +329,31 @@ kernels line. The phases:
    check; and a fourth pair over the engine's int8 wire: both replicas
    decode the same bytes, within 0.1 of the fp32 mean, under half the
    fp32 engine's wire bytes. Prints each allreduce's seconds with every
-   group, the spawn and respawn seconds and ``df /dev/shm``.
+   group, the spawn and respawn seconds and ``df /dev/shm``, and every
+   ``hb_lapse`` record of its lighthouses beside the host watch's reading
+   at that moment (``hb_lapses``).
+20a. The Manager's fault scenarios on the card's tensors
+   (``manager_scenarios_phase``): Managers in threads of this process
+   over ``ProcessGroupSocket``, each replica's state on the card at
+   llama_small's parameter shapes, gradients seeded by (replica, step) on
+   the card, SGD there. Crash and HTTP heal (both end equal, the heal
+   delivers exactly the parameters' bytes, a planted element fails the
+   equality); three replicas with an upscale and a crash; an operator
+   drain (``request_drain``, ``drain_requested``, then ``drain_all``); the
+   lighthouse process SIGKILLed mid-run and restarted at the same address
+   (the round without it fails to commit, no trainer raises, commits
+   resume, states equal); the int4 device-quantized allreduce of three
+   replicas on one odd-length leaf (kernels 7-8 once per transfer chunk
+   per replica, the host quantizer's int4 average bit for bit, an int8
+   reference differs). One line with each scenario's wall, commits, failed
+   commits and heal bytes; its wall must stay under ``SCENARIO_BUDGET_S``.
+
+The host watch (``HostWatch``) runs over ``drill_phases``: every 100 ms it
+records how late its own sleep woke, with the phases then running, and
+reads the host's load, pressure (where ``/proc/pressure`` exists) and
+memory, this process's CPU and memory and the card's memory once a
+second; it prints its five latest wake-ups before the kernels line
+(``host_watch.json``).
 21. Tensor, expert, sequence and pipeline parallelism: two ranks on the
    card in a ``cpu:gloo,cuda:gloo`` world (NCCL refuses two ranks on one
    device; ``init_group`` returns at once for it), each first checking the
@@ -3839,6 +3865,34 @@ BABY_WEDGE_WAIT_S = 5.0
 NATIVE_INT8_ATOL = 0.1
 
 
+def hb_lapses(lighthouse, tag: str) -> list:
+    """The ``hb_lapse`` records of an in-process lighthouse's signal ring
+    (its ``fleet`` RPC's ``signals``; ``gap_ms``, ``budget_ms``:
+    torchft_tpu/_cpp/lighthouse.cc:1383-1389), each printed beside the host
+    watch's state and phases at that moment. Returns the records."""
+    from torchft_tpu_torch.coordination import LighthouseClient
+
+    try:
+        client = LighthouseClient(lighthouse.address(), connect_timeout=5.0)
+        try:
+            signals = client.fleet(timeout=5.0).get("signals", [])
+        finally:
+            client.close()
+    except Exception as e:  # noqa: BLE001 - a reading; the phase's checks decide
+        print(f"baby: {tag} lighthouse's signals unread: {e!r}", flush=True)
+        return []
+    lapses = [s for s in signals if s.get("source") == "hb_lapse"]
+    for s in lapses:
+        at = s.get("ts_ms", 0) / 1000.0
+        watch = HOST_WATCH
+        host = watch.near(at) if watch is not None else None
+        phases = list(watch.phases_at(at)) if watch is not None else []
+        print(f"baby: {tag} lighthouse hb_lapse on {s.get('replica_id')} at {at:.3f}: "
+              f"{json.dumps(s.get('detail'))}; phases {phases}; host {json.dumps(host)}",
+              flush=True)
+    return lapses
+
+
 def baby_phase() -> dict:
     """Phase 20: two Managers in threads of this process against an
     in-process lighthouse, each over ``ProcessGroupBabySocket``, on buffers
@@ -3942,7 +3996,11 @@ def baby_phase() -> dict:
         return int((flat(outs).view(np.int32) != want.view(np.int32)).sum())
 
     # (a) fp32 through the socket group, then through the Baby group.
-    def close(lighthouse, managers) -> None:
+    lapses = []
+
+    def close(lighthouse, managers, tag: str) -> None:
+        # Every lighthouse's hb_lapse records print, failed or not.
+        lapses.extend(hb_lapses(lighthouse, tag))
         # The caller owns a Manager's process group: shut it down too.
         for m in managers:
             m.shutdown()
@@ -3953,7 +4011,7 @@ def baby_phase() -> dict:
     try:
         sock = step(managers, False)
     finally:
-        close(lighthouse, managers)
+        close(lighthouse, managers, "socket")
     lighthouse, managers = make_managers(ProcessGroupBabySocket, "baby")
     pgs = [m._pg for m in managers]
     try:
@@ -4029,7 +4087,7 @@ def baby_phase() -> dict:
             if flat(healed[r][1]).tobytes() != want.tobytes():
                 raise AssertionError(f"baby: replica {r}'s allreduce after the respawn differs")
     finally:
-        close(lighthouse, managers)
+        close(lighthouse, managers, "baby")
 
     # (d) fp32 through the native engine, then a planted fault.
     def wire_step(managers) -> tuple:
@@ -4065,7 +4123,7 @@ def baby_phase() -> dict:
                 f"({fault_differ} values differ)"
             )
     finally:
-        close(lighthouse, managers)
+        close(lighthouse, managers, "native")
 
     # (e) the engine's int8 wire.
     lighthouse, managers = make_managers(
@@ -4085,7 +4143,7 @@ def baby_phase() -> dict:
                 f"wire {q8_tx} B against fp32 {native_tx} B"
             )
     finally:
-        close(lighthouse, managers)
+        close(lighthouse, managers, "native_int8")
     out = {
         "launches": launches,
         "fp32_socket_s": [s for _, _, s in sock],
@@ -4101,6 +4159,7 @@ def baby_phase() -> dict:
         "int8_native_s": [s for _, _, s in native_q8],
         "int8_native_max_abs_err": q8_err,
         "native_wire_tx": {"fp32": native_tx, "int8": q8_tx},
+        "hb_lapses": lapses,
     }
     print(f"baby ok: {n_values} values ({4 * n_values} B fp32) a replica; fp32 "
           f"allreduce socket {out['fp32_socket_s']} s, baby {out['fp32_baby_s']} s "
@@ -4111,9 +4170,461 @@ def baby_phase() -> dict:
           f"native fp32 {out['fp32_native_s']} s (the socket group's bytes; the "
           f"planted fault differs in {fault_differ} values), native int8 "
           f"{out['int8_native_s']} s (max error {q8_err:.4f}, wire {q8_tx} B "
-          f"against fp32 {native_tx} B)",
+          f"against fp32 {native_tx} B); hb_lapse records {len(lapses)}",
           flush=True)
     (OUT / "baby.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20a: the Manager's fault scenarios on the card's tensors
+# ---------------------------------------------------------------------------
+
+SCENARIO_SEED = 27
+SCENARIO_LR = 0.01
+# Phase 20a's wall budget, seconds: cut steps, not scenarios, to meet it.
+SCENARIO_BUDGET_S = 90.0
+# The int4 leaf's length: odd, so the nibble packing ends in a ragged byte,
+# and over one transfer chunk, so each replica quantizes and dequantizes in
+# two chunks.
+SCENARIO_Q4_N = 25_000_001
+
+
+def state_equal(a: dict, b: dict) -> bool:
+    """Whether two fp32 states hold the same names, shapes and bits."""
+    import torch
+
+    return sorted(a) == sorted(b) and all(
+        a[n].shape == b[n].shape
+        and torch.equal(a[n].view(torch.int32), b[n].view(torch.int32))
+        for n in a)
+
+
+def manager_scenarios_phase(device: str = "cuda", model: str = "small",
+                            q4_n: int = SCENARIO_Q4_N) -> dict:
+    """Phase 20a: the port's Manager in threads of this process against an
+    in-process lighthouse, over ``ProcessGroupSocket``, each replica's state
+    on ``device`` at ``model``'s parameter shapes (llama_small's on the
+    card), gradients from a ``torch.Generator`` on the device seeded by
+    (replica, step), SGD on the device. Five scenarios, each ending in a
+    check that raises:
+    1. crash and heal: replica 1 crashes at step 2, restarts and heals by
+       HTTP from replica 0; both end equal, the heal delivered exactly the
+       parameters' bytes, and one element planted into the healed state
+       after the heal fails the equality;
+    2. three replicas, one crash: a third replica joins mid-run (upscale,
+       a heal), then replica 1 crashes and heals; all three end equal;
+    3. operator drain: ``request_drain`` on replica 1, which sees
+       ``drain_requested()`` at its next quorum and leaves; replica 0
+       commits alone (``min_replica_size`` 1) until ``drain_all`` ends it;
+    4. lighthouse outage: the lighthouse process is SIGKILLed between two
+       rounds; the round without it fails to commit on both replicas and no
+       trainer thread raises; a new lighthouse at the same address and the
+       next round commits; both end equal with failed commits above 0;
+    5. the device-quantized allreduce at int4 over three replicas, one leaf
+       of ``q4_n`` values (``SCENARIO_Q4_N`` on the card): on a CUDA device the quantize and
+       dequantize kernels launch once per transfer chunk per replica (the
+       counts set to 0 just before); every replica's result equals, bit for
+       bit, the host quantizer's int4 average (each payload quantized and
+       dequantized, summed in rank order, requantized, times 1/3), and the
+       int8 reference (the planted fault) differs.
+    Prints one line with each scenario's wall, commits, failed commits and
+    heal bytes; returns them with the kernels' launches."""
+    import signal as signal_mod
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.collectives import dequantize_blockwise, quantize_blockwise
+    from torchft_tpu_torch.coordination import LighthouseClient, LighthouseServer
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, llama_debug, llama_small
+    from torchft_tpu_torch.ops import quantization
+    from torchft_tpu_torch.process_group import ProcessGroupSocket
+
+    t_phase = time.monotonic()
+    dev = torch.device(device)
+    with torch.device("meta"):
+        cfg = llama_small() if model == "small" else llama_debug()
+        shapes = {n: tuple(p.shape) for n, p in Transformer(cfg).named_parameters()}
+    names = sorted(shapes)
+    state_bytes = sum(4 * math.prod(s) for s in shapes.values())
+
+    def init_state() -> dict:
+        g = torch.Generator(device=dev).manual_seed(SCENARIO_SEED)
+        return {n: 0.02 * torch.randn(shapes[n], generator=g, device=dev) for n in names}
+
+    def grads(replica: int, step: int) -> list:
+        g = torch.Generator(device=dev).manual_seed(SCENARIO_SEED + 1000 * (step + 1) + replica)
+        return [torch.randn(shapes[n], generator=g, device=dev) for n in names]
+
+    def lighthouse(min_replicas: int, bind: str = "127.0.0.1:0") -> LighthouseServer:
+        return LighthouseServer(bind=bind, min_replicas=min_replicas, join_timeout_ms=10000,
+                                quorum_tick_ms=20, heartbeat_timeout_ms=5000)
+
+    class Replica:
+        """One replica group's loop; ``crash_at`` crashes its first
+        incarnation before that step (its Manager shut down, its state
+        dropped) and starts a second, which heals."""
+
+        def __init__(self, r: int, addr: str, tag: str, total: int, min_size: int = 1,
+                     crash_at: int = None, hook=None, drains: bool = False):
+            self.r, self.addr, self.tag, self.total = r, addr, tag, total
+            self.min_size, self.crash_at, self.hook, self.drains = min_size, crash_at, hook, drains
+            self.commits = self.failed = 0
+            self.heal_bytes, self.participants, self.managers = [], [], []
+            self.state = None
+            self.drained = False
+
+        def run(self) -> dict:
+            for incarnation in range(2 if self.crash_at is not None else 1):
+                self.state = init_state()
+                if not self._incarnation(crash=incarnation == 0 and self.crash_at is not None):
+                    return self.state
+            return self.state
+
+        def _load(self, sd: dict) -> None:
+            # The heal delivers each leaf as a tensor or, from a host
+            # buffer, a numpy array.
+            sd = {n: torch.as_tensor(t) for n, t in sd.items()}
+            self.heal_bytes.append(sum(t.numel() * t.element_size() for t in sd.values()))
+            for n, t in sd.items():
+                self.state[n].copy_(t)
+
+        def _incarnation(self, crash: bool) -> bool:
+            """One Manager's life; True when it crashed."""
+            m = Manager(
+                pg=ProcessGroupSocket(timeout=60.0), state_dict=lambda: dict(self.state),
+                load_state_dict=self._load, min_replica_size=self.min_size,
+                use_async_quorum=False, timeout=60.0, quorum_timeout=60.0,
+                replica_id=f"chip_smoke_{self.tag}{self.r}", lighthouse_addr=self.addr,
+                group_rank=0, group_world_size=1, init_sync=False,
+            )
+            self.managers.append(m)
+            try:
+                while m.current_step() < self.total:
+                    if crash and m.current_step() >= self.crash_at:
+                        return True
+                    if self.drains and m.drain_requested():
+                        if not m.leave():
+                            raise AssertionError(f"{self.tag}: replica {self.r}'s leave failed")
+                        self.drained = True
+                        return False
+                    m.start_quorum()
+                    if self.hook is not None:
+                        self.hook(self, m)
+                    step = m.current_step()
+                    if step >= self.total:
+                        break
+                    reduced = m.allreduce(grads(self.r, step)).wait(timeout=120)
+                    with m.fenced_state_dict():
+                        if m.should_commit():
+                            for n, g in zip(names, reduced):
+                                self.state[n].add_(g, alpha=-SCENARIO_LR)
+                            self.commits += 1
+                            self.participants.append(m.num_participants())
+                        else:
+                            self.failed += 1
+                return False
+            finally:
+                m.shutdown()
+                m._pg.shutdown()
+
+    def run_all(replicas, delays=None) -> None:
+        pool = ThreadPoolExecutor(max_workers=len(replicas))
+        try:
+            futs = []
+            for i, rep in enumerate(replicas):
+                if delays and delays.get(i):
+                    delays[i]()
+                futs.append(pool.submit(rep.run))
+            for f in futs:
+                f.result(timeout=300)
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def all_equal(tag: str, replicas) -> None:
+        for rep in replicas[1:]:
+            if not state_equal(replicas[0].state, rep.state):
+                raise AssertionError(f"{tag}: replica {rep.r}'s state differs from replica 0's")
+
+    def healed(tag: str, rep) -> None:
+        if not rep.heal_bytes or any(b != state_bytes for b in rep.heal_bytes):
+            raise AssertionError(f"{tag}: replica {rep.r}'s heals delivered {rep.heal_bytes} B, "
+                                 f"the parameters are {state_bytes} B")
+
+    out: dict = {"state_bytes": state_bytes, "scenarios": {}}
+
+    def record(tag: str, t0: float, replicas, **more) -> None:
+        out["scenarios"][tag] = {
+            "wall_s": round(time.monotonic() - t0, 2),
+            "commits": [rep.commits for rep in replicas],
+            "failed": [rep.failed for rep in replicas],
+            "heal_bytes": [rep.heal_bytes for rep in replicas], **more}
+
+    # 1. Crash and heal.
+    t0 = time.monotonic()
+    lh = lighthouse(1)
+    try:
+        reps = [Replica(0, lh.address(), "crash", 4),
+                Replica(1, lh.address(), "crash", 4, crash_at=2)]
+        run_all(reps)
+    finally:
+        lh.shutdown()
+    all_equal("crash", reps)
+    healed("crash", reps[1])
+    planted = {n: t.clone() for n, t in reps[1].state.items()}
+    planted[names[0]].view(-1)[0] += 1.0
+    if state_equal(reps[0].state, planted):
+        raise AssertionError("crash: a planted element in the healed state passed the equality")
+    record("crash", t0, reps, planted_fault_caught=True)
+
+    # 2. Three replicas: a third joins mid-run, then replica 1 crashes.
+    t0 = time.monotonic()
+    joined = threading.Event()
+
+    def pace(rep, m) -> None:
+        # Rounds keep forming while 0 and 1 wait for the joiner.
+        if not joined.is_set():
+            joined.wait(0.25)
+
+    def joiner(rep, m) -> None:
+        if m.num_participants() >= 3:
+            joined.set()
+
+    lh = lighthouse(1)
+    try:
+        reps = [Replica(0, lh.address(), "three", 5, hook=pace),
+                Replica(1, lh.address(), "three", 5, crash_at=3, hook=pace),
+                Replica(2, lh.address(), "three", 5, hook=joiner)]
+
+        def after_first_commit() -> None:
+            deadline = time.monotonic() + 120
+            while reps[0].commits < 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("three: replicas 0 and 1 made no progress")
+                time.sleep(0.05)
+
+        run_all(reps, delays={2: after_first_commit})
+    finally:
+        lh.shutdown()
+    all_equal("three", reps)
+    healed("three", reps[2])
+    healed("three", reps[1])
+    if 3 not in reps[0].participants:
+        raise AssertionError(f"three: never three wide: {reps[0].participants}")
+    record("three", t0, reps)
+
+    # 3. Operator drain.
+    t0 = time.monotonic()
+    lh = lighthouse(1)
+    try:
+        reps = [Replica(0, lh.address(), "drain", 50, drains=True),
+                Replica(1, lh.address(), "drain", 50, drains=True)]
+        client = LighthouseClient(lh.address())
+        pool = ThreadPoolExecutor(max_workers=2)
+        try:
+            futs = [pool.submit(rep.run) for rep in reps]
+
+            def until(cond, what: str) -> None:
+                deadline = time.monotonic() + 120
+                while not cond():
+                    for f in futs:
+                        if f.done():
+                            f.result()
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"drain: {what}")
+                    time.sleep(0.05)
+
+            until(lambda: reps[1].commits >= 1 and reps[1].managers, "replica 1 never committed")
+            client.request_drain(reps[1].managers[-1].replica_id())
+            until(lambda: reps[1].drained, "replica 1 never drained")
+            alone = reps[0].commits
+            until(lambda: reps[0].commits > alone and reps[0].participants[-1] == 1,
+                  "replica 0 never committed alone")
+            report = client.drain_all()
+            for f in futs:
+                f.result(timeout=120)
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+            client.close()
+    finally:
+        lh.shutdown()
+    if not (reps[0].drained and reps[1].drained and report.get("n_sent", 0) >= 1
+            and reps[0].commits < 50):
+        raise AssertionError(f"drain: drained {[r.drained for r in reps]}, drain_all {report}, "
+                             f"commits {[r.commits for r in reps]}")
+    record("drain", t0, reps, drain_all=report, alone_commits=reps[0].participants.count(1))
+
+    # 4. Lighthouse outage and restart.
+    t0 = time.monotonic()
+    lh = lighthouse(2)
+    addr = lh.address()
+    port = int(addr.rsplit(":", 1)[1])
+    barrier = threading.Barrier(3)
+    raised = []
+
+    class OutageReplica(Replica):
+        def run(self) -> dict:
+            self.state = init_state()
+            m = Manager(
+                pg=ProcessGroupSocket(timeout=60.0), state_dict=lambda: dict(self.state),
+                load_state_dict=self._load, min_replica_size=2, use_async_quorum=False,
+                timeout=60.0, quorum_timeout=60.0, replica_id=f"chip_smoke_outage{self.r}",
+                lighthouse_addr=self.addr, group_rank=0, group_world_size=1,
+                init_sync=False, max_retries=5,
+            )
+            try:
+                for rnd in range(3):
+                    barrier.wait(timeout=120)
+                    try:
+                        m.start_quorum(timeout=6.0 if rnd == 1 else 60.0)
+                    except Exception:  # noqa: BLE001 - the latched error fails the commit
+                        if m.errored() is None:
+                            raise
+                    step = m.current_step()
+                    reduced = m.allreduce(grads(self.r, step)).wait(timeout=120)
+                    with m.fenced_state_dict():
+                        if m.should_commit():
+                            for n, g in zip(names, reduced):
+                                self.state[n].add_(g, alpha=-SCENARIO_LR)
+                            self.commits += 1
+                        else:
+                            self.failed += 1
+            except BaseException as e:
+                raised.append(repr(e))
+                raise
+            finally:
+                m.shutdown()
+                m._pg.shutdown()
+            return self.state
+
+    reps = [OutageReplica(r, addr, "outage", 3) for r in range(2)]
+    pool = ThreadPoolExecutor(max_workers=2)
+    lh2 = None
+    try:
+        futs = [pool.submit(rep.run) for rep in reps]
+
+        def next_round() -> None:
+            while barrier.n_waiting < 2:
+                for f in futs:
+                    if f.done():
+                        f.result()
+                time.sleep(0.05)
+
+        barrier.wait(timeout=120)  # round 0: healthy
+        time.sleep(0.1)
+        next_round()
+        lh._server._proc.send_signal(signal_mod.SIGKILL)
+        lh._server._proc.wait(timeout=30)
+        barrier.wait(timeout=120)  # round 1: the lighthouse is dead
+        next_round()
+        lh2 = lighthouse(2, bind=f"127.0.0.1:{port}")
+        barrier.wait(timeout=120)  # round 2: back at the same address
+        for f in futs:
+            f.result(timeout=300)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        lh.shutdown()
+        if lh2 is not None:
+            lh2.shutdown()
+    all_equal("outage", reps)
+    if raised or [r.commits for r in reps] != [2, 2] or not all(r.failed > 0 for r in reps):
+        raise AssertionError(f"outage: commits {[r.commits for r in reps]}, failed "
+                             f"{[r.failed for r in reps]}, raised {raised}")
+    record("outage", t0, reps)
+
+    # 5. The device-quantized int4 allreduce over three replicas.
+    t0 = time.monotonic()
+    n = q4_n
+    chunks = -(-n // quantization._TRANSFER_CHUNK)
+    leaves = []
+    for r in range(3):
+        g = torch.Generator(device=dev).manual_seed(SCENARIO_SEED + 500 + r)
+        leaves.append(torch.randn(n, generator=g, device=dev))
+    lh = lighthouse(3)
+    results, ranks = {}, {}
+    try:
+        managers = []
+
+        def make(r: int) -> Manager:
+            return Manager(
+                pg=ProcessGroupSocket(timeout=60.0), min_replica_size=3,
+                use_async_quorum=False, timeout=60.0, quorum_timeout=60.0,
+                replica_id=f"chip_smoke_q4_{r}", lighthouse_addr=lh.address(),
+                group_rank=0, group_world_size=1, init_sync=False,
+            )
+
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            managers = list(pool.map(make, range(3)))
+        try:
+            for kernel in quantization.LAUNCHES:
+                quantization.LAUNCHES[kernel] = 0
+
+            def step(r: int):
+                m = managers[r]
+                m.start_quorum()
+                ranks[r] = m.participating_rank()
+                (res,) = m.allreduce([leaves[r]], should_quantize=True,
+                                     quantize_bits=4).wait(timeout=120)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                results[r] = res
+                return m.should_commit()
+
+            with ThreadPoolExecutor(max_workers=3) as pool:
+                commits = list(pool.map(step, range(3)))
+            launches = dict(quantization.LAUNCHES)
+        finally:
+            for m in managers:
+                m.shutdown()
+                m._pg.shutdown()
+    finally:
+        lh.shutdown()
+    if not all(commits):
+        raise AssertionError(f"int4: commits {commits}")
+    if dev.type == "cuda":
+        for kernel in QUANT_KERNELS:
+            if launches[kernel] != 3 * chunks:
+                raise AssertionError(f"int4: {kernel} launched {launches[kernel]} times, want "
+                                     f"{3 * chunks} ({chunks} chunks per replica)")
+    order = sorted(range(3), key=lambda r: ranks[r])
+
+    def host_average(bits: int) -> np.ndarray:
+        acc = np.zeros(n, np.float32)
+        for r in order:
+            x = leaves[r].cpu().numpy()
+            acc += dequantize_blockwise(*quantize_blockwise(x, bits), n, bits)
+        return dequantize_blockwise(*quantize_blockwise(acc, bits), n, bits) * np.float32(1 / 3)
+
+    want4, want8 = host_average(4), host_average(8)
+    for r in range(3):
+        got = results[r].cpu().numpy()
+        differ = int((got.view(np.int32) != want4.view(np.int32)).sum())
+        if differ:
+            raise AssertionError(f"int4: replica {r} differs from the host quantizer's int4 "
+                                 f"average in {differ} of {n} values")
+    int8_differ = int((results[0].cpu().numpy().view(np.int32) != want8.view(np.int32)).sum())
+    if not int8_differ:
+        raise AssertionError("int4: the planted int8 reference equals the int4 result")
+    out["scenarios"]["int4"] = {"wall_s": round(time.monotonic() - t0, 2),
+                                "commits": [int(c) for c in commits], "failed": [0, 0, 0],
+                                "heal_bytes": [[], [], []], "n": n, "chunks": chunks,
+                                "int8_reference_differs_in": int8_differ}
+    out["launches"] = {k: launches[k] for k in QUANT_KERNELS}
+    out["wall_s"] = round(time.monotonic() - t_phase, 1)
+    print("manager scenarios ok: " + "; ".join(
+        f"{tag} {sc['wall_s']} s, commits {sc['commits']}, failed {sc['failed']}, heal bytes "
+        f"{sc['heal_bytes']}" for tag, sc in out["scenarios"].items())
+        + f"; parameters {state_bytes} B a replica; int4 launches {out['launches']} "
+        f"({chunks} chunks a replica), the int8 reference differs in {int8_differ} values; "
+        f"wall {out['wall_s']} s (budget {SCENARIO_BUDGET_S:g} s)", flush=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "manager_scenarios.json").write_text(json.dumps(out, indent=1))
+    if out["wall_s"] > SCENARIO_BUDGET_S:
+        raise AssertionError(f"phase 20a took {out['wall_s']} s, over its budget")
     return out
 
 
@@ -4761,15 +5272,186 @@ def tp_ep_phase() -> dict:
 
 # Each phase's wall, seconds, by name; printed before the kernels line.
 PHASE_WALLS: dict = {}
+# The phase each thread of this process is in, by thread name: the host
+# watch stamps its wake-ups with it.
+RUNNING: dict = {}
 
 
 def walled(name: str, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``PHASE_WALLS[name]``."""
+    import threading
+
+    thread = threading.current_thread().name
+    RUNNING[thread] = name
     t0 = time.monotonic()
     try:
         return fn(*args)
     finally:
         PHASE_WALLS[name] = round(time.monotonic() - t0, 1)
+        RUNNING.pop(thread, None)
+
+
+# ---------------------------------------------------------------------------
+# The host watch
+# ---------------------------------------------------------------------------
+
+# The watch sleeps WATCH_PERIOD_S at a time and records how late each sleep
+# woke: a host-wide stall delays every thread, this one too. Every
+# WATCH_READ_S, and after every wake-up later than WATCH_STALL_S, it reads
+# the host's state (``read_host``). The lighthouse's evidence budget is
+# 1.2 s (``hb_interval_ms`` times ``evict_mult``, floored at
+# ``evict_floor_ms``: torchft_tpu/_cpp/lighthouse.cc:1375-1377), so a stall
+# of that length turns into an ``hb_lapse``.
+WATCH_PERIOD_S = 0.1
+WATCH_READ_S = 1.0
+WATCH_STALL_S = 0.5
+EVIDENCE_BUDGET_S = 1.2
+MEMINFO_KEYS = ("MemAvailable", "SwapFree", "Dirty", "Writeback", "Shmem")
+PRESSURE_KINDS = ("cpu", "memory", "io")
+def _pressure(text: str) -> dict:
+    """``/proc/pressure/<kind>`` as {"some": {"avg10", "total"}, "full": ...}."""
+    out = {}
+    for line in text.splitlines():
+        kind, *fields = line.split()
+        vals = dict(f.split("=", 1) for f in fields)
+        out[kind] = {"avg10": float(vals["avg10"]), "total": int(vals["total"])}
+    return out
+
+
+def read_host(proc: Path = Path("/proc")) -> dict:
+    """The host's state, read only: ``loadavg`` (the 1, 5 and 15 minute
+    loads and running/total tasks), ``pressure`` ({cpu, memory, io}: some
+    and full avg10 and total µs; None where ``/proc/pressure`` is absent),
+    ``meminfo`` (``MEMINFO_KEYS`` in kB) and ``self`` (this process's CPU
+    seconds, resident kB and threads)."""
+    out: dict = {}
+    out["loadavg"] = (proc / "loadavg").read_text().split()[:4]
+    pressure = {}
+    for kind in PRESSURE_KINDS:
+        try:
+            pressure[kind] = _pressure((proc / "pressure" / kind).read_text())
+        except OSError:
+            pass
+    out["pressure"] = pressure or None
+    meminfo = {}
+    for line in (proc / "meminfo").read_text().splitlines():
+        key, _, rest = line.partition(":")
+        if key in MEMINFO_KEYS:
+            meminfo[key] = int(rest.split()[0])
+    out["meminfo"] = meminfo
+    # This process's own share: resident memory, threads, CPU seconds.
+    own = {"cpu_s": round(sum(os.times()[:2]), 2)}
+    try:
+        for line in (proc / "self" / "status").read_text().splitlines():
+            key, _, rest = line.partition(":")
+            if key in ("VmRSS", "Threads"):
+                own[key] = int(rest.split()[0])
+    except OSError:
+        pass
+    out["self"] = own
+    return out
+
+
+class HostWatch:
+    """A thread that records how late each of its sleeps wakes, with the
+    host's state and the phases running (``RUNNING``). ``clock`` and
+    ``sleep`` are the monotonic clock and the sleep it measures, ``wall``
+    the epoch clock the lighthouse's records use, ``read`` the host reader
+    and ``extra`` a callable whose dict joins each reading (the card's
+    memory)."""
+
+    def __init__(self, period: float = WATCH_PERIOD_S, read_every: float = WATCH_READ_S,
+                 clock=time.monotonic, sleep=time.sleep, wall=time.time,
+                 read=read_host, extra=None) -> None:
+        self.period, self.read_every = period, read_every
+        self._clock, self._sleep, self._wall = clock, sleep, wall
+        self._read, self._extra = read, extra
+        self.wakes: list = []      # (epoch s, late s, phases)
+        self.readings: list = []   # (epoch s, host state)
+        self._last_read = None
+        self._stop = None
+        self._thread = None
+
+    def reading(self) -> dict:
+        host = self._read()
+        if self._extra is not None:
+            host.update(self._extra())
+        return host
+
+    def tick(self) -> float:
+        """One sleep: records its lateness (and reads the host when due);
+        returns the lateness in seconds."""
+        t0 = self._clock()
+        self._sleep(self.period)
+        late = max(0.0, self._clock() - t0 - self.period)
+        now = self._wall()
+        self.wakes.append((now, late, tuple(sorted(set(RUNNING.values())))))
+        if (self._last_read is None or now - self._last_read >= self.read_every
+                or late >= WATCH_STALL_S):
+            self._last_read = now
+            try:
+                self.readings.append((now, self.reading()))
+            except Exception as e:  # noqa: BLE001 - the watch must outlive a bad read
+                self.readings.append((now, {"error": repr(e)}))
+        return late
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.tick()
+
+    def start(self) -> "HostWatch":
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="host-watch", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(5)
+
+    def near(self, at: float) -> dict:
+        """The first reading taken at or after ``at`` (a stall delays the
+        reading too, so it sees the host as the stall left it), else the
+        last one; None before any."""
+        for ts, host in self.readings:
+            if ts >= at:
+                return host
+        return self.readings[-1][1] if self.readings else None
+
+    def phases_at(self, at: float) -> tuple:
+        """The phases running at the wake-up nearest ``at``."""
+        if not self.wakes:
+            return ()
+        return min(self.wakes, key=lambda w: abs(w[0] - at))[2]
+
+    def worst(self, n: int = 5) -> list:
+        """The ``n`` latest wake-ups, latest first, each with the host's
+        state right after it and the phases then running."""
+        ranked = sorted(self.wakes, key=lambda w: -w[1])[:n]
+        return [{"at": round(ts, 3), "late_s": round(late, 3), "phases": list(phases),
+                 "host": self.near(ts)} for ts, late, phases in ranked]
+
+    def stalls(self, limit: float = WATCH_STALL_S) -> int:
+        return sum(1 for _, late, _ in self.wakes if late >= limit)
+
+    def summary(self) -> str:
+        """The line the smoke prints: how many wake-ups, how many late past
+        ``WATCH_STALL_S`` and past the evidence budget, whether
+        ``/proc/pressure`` was there, and the five worst."""
+        first = self.readings[0][1] if self.readings else {}
+        pressure = ("present" if first.get("pressure") else "absent (no PSI on this kernel)")
+        return (f"host watch: {len(self.wakes)} wake-ups of {self.period:g} s, "
+                f"{self.stalls()} late by >= {WATCH_STALL_S:g} s, "
+                f"{self.stalls(EVIDENCE_BUDGET_S)} by >= {EVIDENCE_BUDGET_S:g} s "
+                f"(the evidence budget); /proc/pressure {pressure}; five worst "
+                + json.dumps(self.worst(5)))
+
+
+# The watch over ``drill_phases``, for phase 20's lighthouse records.
+HOST_WATCH = None
 
 
 def flash_path_phase() -> tuple:
@@ -4870,7 +5552,7 @@ IN_PROCESS = (
     ("moe", moe_phase), ("pipeline", pipeline_phase),
     ("localsgd", localsgd_phase), ("ulysses_check", ulysses_check),
     ("pipeline_check", pipeline_check), ("train_step", train_step_phase),
-    ("baby", baby_phase),
+    ("baby", baby_phase), ("manager_scenarios", manager_scenarios_phase),
 )
 
 
@@ -4878,36 +5560,38 @@ def drill_phases() -> dict:
     """Runs ``DRILL_LANES`` in threads and ``IN_PROCESS`` on this thread,
     sampling the card's memory in use (every process's) once a second.
     Returns {phase name: its result}; phase 6's heal record is under
-    ``"http_heal"``. Raises the first failure once every lane has ended."""
-    import threading
+    ``"http_heal"``. Raises the first failure once every lane has ended.
+    A ``HostWatch`` runs beside them (it also reads the card's memory) and
+    its line prints at the end, failed or not."""
+    global HOST_WATCH
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     out = {}
     peak = [0]
-    done = threading.Event()
 
-    def sample() -> None:
-        while not done.wait(1.0):
-            free, total = torch.cuda.mem_get_info()
-            peak[0] = max(peak[0], total - free)
+    def card_memory() -> dict:
+        free, total = torch.cuda.mem_get_info()
+        peak[0] = max(peak[0], total - free)
+        return {"card_used_gib": round((total - free) / 2**30, 2)}
 
     def run(lane) -> None:
         for name, fn in lane:
             out[name] = walled(name, fn)
 
-    sampler = threading.Thread(target=sample, name="memory-sampler", daemon=True)
-    sampler.start()
+    HOST_WATCH = HostWatch(extra=card_memory).start()
     try:
-        with ThreadPoolExecutor(len(DRILL_LANES)) as pool:
+        with ThreadPoolExecutor(len(DRILL_LANES), thread_name_prefix="lane") as pool:
             lanes = [pool.submit(run, lane) for lane in DRILL_LANES]
             run(IN_PROCESS)
             for lane in lanes:
                 lane.result()
     finally:
-        done.set()
-        sampler.join(5)
+        HOST_WATCH.stop()
+        (OUT / "host_watch.json").write_text(json.dumps(
+            {"wakes": HOST_WATCH.wakes, "readings": HOST_WATCH.readings}))
+        print(HOST_WATCH.summary(), flush=True)
     print(f"drills: {len(DRILL_LANES)} lanes beside the main thread, card memory "
           f"in use at most {peak[0] / 2**30:.1f} GiB of "
           f"{torch.cuda.mem_get_info()[1] / 2**30:.1f}; lane walls (s) "
@@ -4916,6 +5600,55 @@ def drill_phases() -> dict:
                       for lane in (*DRILL_LANES, IN_PROCESS)), flush=True)
     out["path"], out["http_heal"] = out["path"]
     return out
+
+
+class Tee:
+    """A text stream that writes to every stream it holds."""
+
+    def __init__(self, *streams) -> None:
+        self.streams = streams
+
+    def write(self, text: str) -> None:
+        for s in self.streams:
+            s.write(text)
+
+    def flush(self) -> None:
+        for s in self.streams:
+            s.flush()
+
+
+def drills_only(runs: int) -> int:
+    """``python3 chip_smoke.py --drills N``: the kernels' build, then
+    ``drill_phases`` N times in turn and nothing else (no result line), each
+    run with its host watch's line (``host_watch_run<i>.json``); a failed
+    run is printed and the next one starts. Everything printed also goes
+    to ``drills.log``. Exit 1 if any run failed. It counts how often the
+    host stalls past the evidence budget."""
+    import contextlib
+    import traceback
+
+    build_kernels()
+    failed = []
+    with open(OUT / "drills.log", "w") as log, contextlib.redirect_stdout(Tee(sys.stdout, log)):
+        print(f"card: {card_line()}", flush=True)
+        for i in range(runs):
+            t0 = time.monotonic()
+            PHASE_WALLS.clear()
+            try:
+                drill_phases()
+                verdict = "ok"
+            except Exception as e:  # noqa: BLE001 - the next run still starts
+                traceback.print_exc(file=sys.stdout)
+                failed.append(i)
+                verdict = f"FAILED: {type(e).__name__}: {e}"
+            print(f"drills run {i + 1} of {runs}: {verdict}; wall "
+                  f"{time.monotonic() - t0:.1f} s; phase walls (s) {json.dumps(PHASE_WALLS)}",
+                  flush=True)
+            watch = OUT / "host_watch.json"
+            if watch.exists():
+                watch.rename(OUT / f"host_watch_run{i + 1}.json")
+        print(f"drills: {runs - len(failed)} of {runs} runs passed", flush=True)
+    return 1 if failed else 0
 
 
 def main() -> int:
@@ -4934,6 +5667,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     set_peaks(torch.cuda.get_device_name(0))
+    if sys.argv[1:2] == ["--drills"]:
+        return drills_only(int(sys.argv[2]))
     from concurrent.futures import ThreadPoolExecutor
 
     # Phase 1a needs the CPU only: it runs beside the build and the SASS
@@ -4953,7 +5688,7 @@ def main() -> int:
     # The bench times the card: it runs alone, before the drills.
     bench = walled("18 bench", bench_phase)
     walled("18a ledger", ledger_phase, bench)
-    drills = walled("6-17, 20 drills", drill_phases)
+    drills = walled("6-17, 20, 20a drills", drill_phases)
     path, quantized, ring, ulysses = (
         drills[k] for k in ("path", "quantized", "ring", "ulysses"))
     (pg_sharded, pg_heal), preempt = drills["pg_sharded"], drills["preempt"]
@@ -4999,6 +5734,7 @@ def main() -> int:
             }
             more["bench_launches"] = bench["kernel_launches"][name]
             more["baby_launches"] = baby["launches"][name]
+            more["manager_scenarios_launches"] = drills["manager_scenarios"]["launches"][name]
             launches += sum(more.values())
             rec = {**rec, "localsgd_launches": localsgd["launches"][name], **more}
         if name in FLASH_KERNELS:

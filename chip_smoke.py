@@ -1,15 +1,16 @@
 """On-card smoke of the PyTorch port (torchft_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --drills N # the build, then phases 6-17, 20 and 20a N times
+    python3 chip_smoke.py --drills N # the build, then phases 6-17 (16b too), 20 and 20a N times
 
 Any failure of a phase exits non-zero and prints no result line. The
 schedule: phases 1-5 and then the bench (18) run alone, since they time the
 card, and 18a (the host's ledger and gate over the bench's round) after
-them; then phases 6-17, 20 and 20a run as ``drill_phases``: three lanes
-of drills side by side (6, 16, 16a; 7, 8 and 12's drill; 15, 9 and 11)
-beside 13's and 14's drills and then the in-process phases (10, 12's and
-14's checks, 17, 20, 20a) on the main thread, watched by the host watch;
+them; then phases 6-17, 20 and 20a run as ``drill_phases``: five lanes
+of drills side by side (6, 16, 16a; 7, 8 and 12's drill; 15, 9 and 11;
+16b's cnn drills; 16b's device-wire drills) beside 13's and 14's drills and
+then the in-process phases (10, 12's and 14's checks, 17, 20, 20a) on the
+main thread, watched by the host watch;
 then 19 alone (it sets this process's environment, which any process
 started meanwhile would inherit), 19a, and 21 alone (its wall has a
 budget). Each phase's wall prints before the
@@ -183,6 +184,36 @@ kernels line. The phases:
    ``render_fleet_prometheus`` of the live fleet without group 1's
    ``hb_jitter`` flag, must both fail. Prints the seconds to the flag, its
    flags, the anomalies, the scrapes and the drill's wall.
+16b. Departures (``python -m torchft_tpu_torch.drills``, the twin of the
+   JAX package's ``tools/drills.py``, called as ``drills.run`` with its
+   directory under ``OUT/departures``): every drill's report must pass
+   ``drills.check_report`` (the JAX drill's verdicts) and its planted fault
+   (``drills.planted``: a diverged group, a joiner that never healed
+   mid-run, a 30 s drain stall, a resume step other than the drain step, a
+   storm kill in the wrong phase, a "healing from" line in the promoted
+   spare's post-kill log) be refused. At ResNet-50's published ImageNet
+   widths on the int4 wire without error feedback (``DEPARTURE_RESNET``,
+   phase 11's workload): ``spare-failover`` (three groups at a fixed world
+   size of 2: an active group SIGKILLed, the spare promoted with no heal,
+   all three bitwise equal; the spare's zeros go through kernels 7 and 8)
+   and ``heal-storm`` (kills on "reconfiguring pg" and "healing from", the
+   survivor never restarted). At the JAX drills' own configuration (cnn,
+   int4 with error feedback where the JAX drill has it): ``drain`` (SIGTERM
+   and SIGKILL legs, each survivor stall under 3.5 s), ``elastic-up`` (a
+   mid-run join), ``elastic-down`` (3->2), ``preempt-all --via operator``
+   (one ``drain_all``; the relaunch resumes from the drain-time snapshots)
+   and ``soak`` (2 kills); and ``model-heal --model ulysses`` (int4,
+   pg-sharded heal; moe and pipeline run on the same wire in 13 and 14).
+   ``DEPARTURES`` lists each drill's steps and cuts. In two lanes:
+   elastic-down, preempt-all, soak and elastic-up; then drain, model-heal
+   and the ResNet-50 drills, each of those once the card's memory in use
+   is at most ``DEPARTURE_CARD_GIB`` (``wait_for_card_memory``, at most
+   ``DEPARTURE_WAIT_S``). Kernels 7 and 8 must launch in every group of the
+   device-wire drills, and their launches join rows 7-8 of the kernels
+   line. Prints each drill's wall, restarts, heal receives' bytes, each
+   group's kernel 7 / 8 launches and the card's memory in use at most
+   meanwhile (the host watch's readings), again after the drills, and
+   keeps them in ``OUT/departures/<drill>.json``.
 17. Train step: ``make_train_step`` at llama_small's widths (B=8, S=1024,
    flash, one NCCL rank) at ``accum_steps`` 1 and 2 from the same seed's
    ``init_train_state``, each held to the mesh-free model (``grad_step`` +
@@ -395,8 +426,8 @@ second; it prints its five latest wake-ups before the kernels line
 22. The ``{"kernels": [...]}`` line (the flash rows count the Ulysses,
    pg-sharded, preemption and orchestration drills', phase 17's, the
    bench's and phase 21's launches too, the block rows phase 21's, the
-   quantize rows the DDP, MoE, GPipe drills', the bench's and the Baby
-   group's), the card line, and the last line: ``{"ok": true, "device":
+   quantize rows the DDP, MoE, GPipe drills', the bench's, the Baby
+   group's, phase 20a's and phase 16b's device-wire drills'), the card line, and the last line: ``{"ok": true, "device":
    {...}}``.
 
 Logs and details go to ``chiprun_out/chip_smoke/``. Imports nothing of JAX
@@ -3451,6 +3482,184 @@ def fleet_plane_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 16b: the departure drills (python -m torchft_tpu_torch.drills)
+# ---------------------------------------------------------------------------
+
+# BASELINE config #3 at its published widths (phase 11's workload) on the
+# int4 wire without error feedback: the gradients, and a spare's or a
+# healing group's zeros, take the device path through kernels 7 and 8.
+# (With error feedback every bucket takes the host quantizer.)
+DEPARTURE_RESNET = [
+    "--model", "resnet50", "--image-size", "224", "--num-classes", "1000",
+    "--batch-size", "32", "--quantize", "--quantize-bits", "4",
+]
+# Each drill's arguments (``python -m torchft_tpu_torch.drills <drill>``)
+# and whether it runs ResNet-50 (``DEPARTURE_RESNET``) in place of the JAX
+# drills' cnn. Cuts from the JAX defaults: the spare drill 2000 -> 100
+# ResNet-50 steps (its kill at step 15 leaves a runway of 85 steps, ~40 s,
+# for the victim's relaunch), the heal storm 100 -> 30 steps, the soak 4 ->
+# 2 kills; elastic-up runs 2400 cnn steps, up from 1200, so that the run
+# outlives the joiner's start on the card beside the other lanes.
+# model-heal runs ulysses only: phases 13 and 14 run moe and pipeline on
+# the same int4 device wire (with the HTTP heal; the pg-sharded heal runs
+# in phase 15).
+DEPARTURES = {
+    "spare-failover": (["--steps", "100"], True),
+    "heal-storm": (["--steps", "30"], True),
+    "model-heal": (["--model", "ulysses", "--steps", "30"], False),
+    "drain": (["--steps", "60"], False),
+    "elastic-up": (["--steps", "2400"], False),
+    "elastic-down": (["--steps", "120"], False),
+    "preempt-all": (["--steps", "60", "--via", "operator"], False),
+    "soak": (["--steps", "100", "--kills", "2"], False),
+}
+# The drills whose trainers launch kernels 7 and 8 (the int4 device wire).
+DEVICE_WIRE_DRILLS = ("spare-failover", "heal-storm", "model-heal")
+# Before a ResNet-50 drill starts, the card's memory in use (every
+# process's) must fall to this many GiB: its two or three groups take up
+# to ~18 GiB (phase 16b alone: 18.02 GiB at most), and the other lanes'
+# llama_small drills up to ~66 GiB while they overlap, against the 76 GiB
+# the whole run must stay under. Waits at most DEPARTURE_WAIT_S, then runs.
+DEPARTURE_CARD_GIB = 50.0
+DEPARTURE_WAIT_S = 240.0
+
+
+def wait_for_card_memory(limit_gib: float, timeout_s: float) -> float:
+    """Waits, reading once a second, until the card's memory in use is at
+    most ``limit_gib``, or ``timeout_s`` passed; returns the seconds
+    waited."""
+    import torch
+
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        free, total = torch.cuda.mem_get_info()
+        if (total - free) / 2**30 <= limit_gib:
+            break
+        time.sleep(1.0)
+    return time.monotonic() - t0
+
+
+def card_peak_gib(t0: float, t1: float):
+    """The most card memory in use (every process's) that the host watch
+    read between the epoch seconds ``t0`` and ``t1``; None without a
+    watch."""
+    if HOST_WATCH is None:
+        return None
+    used = [h["card_used_gib"] for ts, h in list(HOST_WATCH.readings)
+            if t0 <= ts <= t1 and "card_used_gib" in h]
+    return max(used) if used else None
+
+
+def departure(drill: str) -> dict:
+    """One departure drill on the card (``drills.run``: its verdicts by
+    ``drills.check_report``, which raises with the report on a failure),
+    its directory under ``OUT/departures/<drill>``. Then
+    ``drills.planted`` of its report must be refused. For the drills on the
+    device wire, kernels 7 and 8 must have launched in every group's last
+    incarnation and no attention kernel in a DDP drill. Prints the wall, the
+    restarts, the heal receives' bytes, each group's kernel 7 / 8 launches
+    and the card's peak memory meanwhile; returns {"report", "launches"
+    (summed over the groups), "wall_s"}."""
+    import shutil
+
+    from torchft_tpu_torch import drills
+
+    argv, full_width = DEPARTURES[drill]
+    work = OUT / "departures" / drill
+    shutil.rmtree(work, ignore_errors=True)
+    args = drills.parse_args([drill, *argv, "--device", "cuda"])
+    args.workdir = str(work)
+    waited = 0.0
+    if full_width:
+        args.ddp_args = DEPARTURE_RESNET
+        waited = wait_for_card_memory(DEPARTURE_CARD_GIB, DEPARTURE_WAIT_S)
+    t0 = time.time()
+    try:
+        report = drills.run(args)
+    except drills.DrillFailed as e:
+        raise AssertionError(f"departure {drill}: {e.reasons}; report "
+                             f"{json.dumps(e.report)}") from None
+    t1 = time.time()
+    try:
+        drills.check_report(drill, drills.planted(drill, report))
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"departure {drill}: its planted fault passed check_report")
+    results = {f.relative_to(work).as_posix(): json.loads(f.read_text())
+               for f in sorted(work.glob("*/results/**/group*.json"))}
+    launches = {name.split("/results/")[-1]: {k: r["kernel_launches"][k] for k in QUANT_KERNELS}
+                for name, r in results.items()}
+    if drill in DEVICE_WIRE_DRILLS:
+        for name, r in results.items():
+            for k in QUANT_KERNELS:
+                if r["kernel_launches"][k] <= 0:
+                    raise AssertionError(f"departure {drill}: {name} never launched {k}")
+            if full_width and r["device"] != "cuda:0":
+                raise AssertionError(f"departure {drill}: {name} ran on {r['device']}")
+            for k in FLASH_KERNELS + BLOCK_KERNELS:
+                if full_width and r["kernel_launches"][k] != 0:
+                    raise AssertionError(f"departure {drill}: {name} launched {k}")
+    heals = [
+        e["attrs"]["nbytes"]
+        for f in sorted(work.glob("*/journal/journal_replica*.jsonl"))
+        for e in map(json.loads, f.read_text().splitlines())
+        if e["event"] == "heal_xfer" and e["attrs"]["dir"] == "recv" and e["step"] > 0
+    ]
+    peak = card_peak_gib(t0, t1)
+    verdicts = {k: v for k, v in report.items()
+                if k not in ("drill", "wall_s", "journal_dir", "restarts")}
+    model = ("ResNet-50" if full_width
+             else "llama_debug" if drill == "model-heal" else "cnn")
+    line = (f"departure {drill} ok ({model}"
+            f"{', kernels 7-8' if drill in DEVICE_WIRE_DRILLS else ''}): wall "
+            f"{t1 - t0:.1f} s (after {waited:.1f} s waiting for the card's memory); "
+            f"restarts {report.get('restarts')}; heal receives (B) {heals}; kernel 7 / 8 "
+            f"launches {json.dumps(launches) if drill in DEVICE_WIRE_DRILLS else 'none (host wire)'}; "
+            f"card memory in use at most {peak} GiB meanwhile; planted fault refused; "
+            + json.dumps(verdicts))
+    print(line, flush=True)
+    out = {
+        "report": report,
+        "launches": {k: sum(v[k] for v in launches.values())
+                     if drill in DEVICE_WIRE_DRILLS else 0 for k in QUANT_KERNELS},
+        "group_launches": launches,
+        "heals": heals,
+        "wall_s": t1 - t0,
+        "waited_s": waited,
+        "card_peak_gib": peak,
+        "line": line,
+    }
+    (OUT / "departures" / f"{drill}.json").write_text(json.dumps(out, default=str))
+    return out
+
+
+def departures(names) -> dict:
+    """Phase 16b's drills ``names``, in turn: {drill: ``departure``'s
+    result (also in ``OUT/departures/<drill>.json``)}, and the kernel 7 / 8
+    launches summed under ``"launches"``."""
+    out = {name: departure(name) for name in names}
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in names)
+                       for k in QUANT_KERNELS}
+    return out
+
+
+def departures_cnn_phase() -> dict:
+    """Phase 16b's first lane: cnn drills at the JAX drills' own
+    configuration on ``cuda``."""
+    return departures(("elastic-down", "preempt-all", "soak", "elastic-up"))
+
+
+def departures_device_phase() -> dict:
+    """Phase 16b's second lane: the cnn drain and Ulysses' model-heal first
+    (the three llama_small drills that open the other lanes hold up to ~68
+    GiB of the card for their first ~110 s), then ResNet-50's spare failover
+    and heal storm at its published widths, each once the card's memory
+    allows (``wait_for_card_memory``)."""
+    return departures(("drain", "model-heal", "spare-failover", "heal-storm"))
+
+
+# ---------------------------------------------------------------------------
 # Phase 19a: the port's journal reports over phases 6, 15 and 19's journals
 # ---------------------------------------------------------------------------
 
@@ -5538,6 +5747,8 @@ def pipeline_phase() -> dict:
 # Phases 6-17 and 20. Each lane runs its phases in turn and the lanes run
 # side by side: a drill's wall is mostly its processes' start and the
 # survivor's wait for the relaunched group, which leave the card idle.
+# Phase 16b's ResNet-50 drills come last in their lane, after the first
+# llama_small drills of the other lanes have freed the card.
 # The phases that launch kernels in this process or count launches here
 # run on the main thread (``IN_PROCESS``), one at a time, after the two
 # small drills, when no more than two llama_small drills share the card
@@ -5547,6 +5758,8 @@ DRILL_LANES = (
      ("fleet_plane", fleet_plane_phase)),
     (("quantized", quantized_phase), ("ring", ring_phase), ("ulysses", ulysses_phase)),
     (("pg_sharded", pg_sharded_phase), ("diloco", diloco_phase), ("ddp", ddp_phase)),
+    (("departures_cnn", departures_cnn_phase),),
+    (("departures_device", departures_device_phase),),
 )
 IN_PROCESS = (
     ("moe", moe_phase), ("pipeline", pipeline_phase),
@@ -5619,7 +5832,7 @@ class Tee:
 
 def drills_only(runs: int) -> int:
     """``python3 chip_smoke.py --drills N``: the kernels' build, then
-    ``drill_phases`` N times in turn and nothing else (no result line), each
+    ``drill_phases`` (phase 16b with the other drills) N times in turn and nothing else (no result line), each
     run with its host watch's line (``host_watch_run<i>.json``); a failed
     run is printed and the next one starts. Everything printed also goes
     to ``drills.log``. Exit 1 if any run failed. It counts how often the
@@ -5696,6 +5909,11 @@ def main() -> int:
     localsgd, train_step, baby = drills["localsgd"], drills["train_step"], drills["baby"]
     print(heal_line("http (phase 6)", drills["http_heal"]), flush=True)
     print(heal_line("pg-sharded (phase 15)", pg_heal), flush=True)
+    # Phase 16b's lines again, here where the end of the output keeps them.
+    for lane in ("departures_cnn", "departures_device"):
+        for name, result in drills[lane].items():
+            if name != "launches":
+                print(result["line"], flush=True)
     # Phase 19 sets the parent's environment (the runner's journal, phase
     # 19's planted fault's links), which every process started meanwhile
     # would inherit: it runs after the drills, alone.
@@ -5735,6 +5953,9 @@ def main() -> int:
             more["bench_launches"] = bench["kernel_launches"][name]
             more["baby_launches"] = baby["launches"][name]
             more["manager_scenarios_launches"] = drills["manager_scenarios"]["launches"][name]
+            # Phase 16b: ResNet-50's spare failover and heal storm, and
+            # Ulysses' model-heal, on the int4 device wire.
+            more["departures_launches"] = drills["departures_device"]["launches"][name]
             launches += sum(more.values())
             rec = {**rec, "localsgd_launches": localsgd["launches"][name], **more}
         if name in FLASH_KERNELS:

@@ -305,11 +305,16 @@ def preempt_all_drill(
     timeout_s: float = 600.0,
     env: Optional[Dict[str, str]] = None,
     ranks_per_group: int = 1,
+    via: str = "sigterm",
+    check: bool = True,
 ) -> dict:
     """Full-job preemption: runs groups 0 and 1 of ``python -m <trainer>
     <trainer_args> --min-replicas 2 --result-dir ...`` (``trainer_args``
     must carry ``--durable-dir``); once group 1's log shows its progress
-    line for ``term_after_step``, SIGTERMs BOTH groups (every rank). Each
+    line for ``term_after_step``, SIGTERMs BOTH groups (every rank), or
+    with ``via="operator"`` sends the lighthouse ONE ``drain_all`` (the
+    dashboard's "drain ALL" button: the flag rides each group's next quorum
+    response), which must reach both groups' managers. Each
     drains at its next step boundary with a final durable snapshot. Then
     the whole job relaunches from scratch, against a FRESH lighthouse (total
     control-plane loss): only the snapshots connect the two phases. Groups
@@ -318,12 +323,16 @@ def preempt_all_drill(
 
     Raises unless both groups drained, each relaunched group resumed from
     its drain-time snapshot ("resumed from durable step N" equal to the
-    step it drained at) and both ended with the same bitwise state.
+    step it drained at) and both ended with the same bitwise state; with
+    ``check=False`` these verdicts are returned under ``"failures"`` (a
+    list of messages, empty when all hold) instead. A group that never
+    reaches the kill window, a signal or ``drain_all`` that does not land,
+    or a phase that outlasts ``timeout_s`` raises either way.
     Results land in ``result_dir/{drain,resume}``, logs in
     ``log_dir/{drain,resume}/group{g}.log``. Returns ``{"drained_steps",
-    "resumed_from_steps", "final_steps", "drain": {group: result},
-    "resume": {group: result}, "wall_s"}``. Every process it starts is
-    stopped before it returns."""
+    "resumed_from_steps", "final_steps", "bitwise_equal", "failures",
+    "drain": {group: result}, "resume": {group: result}, "wall_s"}``.
+    Every process it starts is stopped before it returns."""
     mark, sha_key, step_key = _FAMILY[trainer]
     t0 = time.monotonic()
     deadline = t0 + timeout_s
@@ -350,7 +359,10 @@ def preempt_all_drill(
                 )
                 for g, group in enumerate(groups):
                     _require(group.poll() is None, f"SIGTERM {g} failed")
-                    group.signal(signal.SIGTERM)
+                    if via == "sigterm":
+                        group.signal(signal.SIGTERM)
+                if via == "operator":
+                    _drain_all(lighthouse.address(), len(groups))
             rcs = _wait_all(groups, deadline, timeout_s)
         finally:
             for group in groups:
@@ -361,37 +373,58 @@ def preempt_all_drill(
     res1, rcs1, _ = phases["drain"]
     all_drained = all(r and r.get("drained") for r in res1.values())
     drained_steps = [(res1[g] or {}).get(step_key) for g in (0, 1)]
-    _require(all_drained, f"not every group drained cleanly: {res1}")
-    _require(rcs1 == [0, 0], "phase-1 drain did not exit cleanly everywhere")
-
     res2, rcs2, logs2 = phases["resume"]
     resumed = []
     for g in (0, 1):
         text = (logs2 / f"group{g}.log").read_text(errors="replace")
         m = re.search(r"resumed from durable step (\d+)", text)
         resumed.append(int(m.group(1)) if m else None)
-    _require(rcs2 == [0, 0], "relaunched job did not finish cleanly")
-    # Resume must come from the DRAIN-time snapshot, not merely any
-    # periodic one: otherwise a broken save-on-drain path would still pass
-    # (the relaunch would fall back to the last cadence snapshot and
-    # converge bitwise anyway).
-    _require(
-        resumed == drained_steps,
-        f"relaunch did not resume from the drain snapshots: "
-        f"resumed={resumed} drained={drained_steps}",
-    )
     sha = [(res2[g] or {}).get(sha_key) for g in (0, 1)]
-    _require(
-        sha[0] is not None and sha[0] == sha[1], "post-resume groups diverged"
-    )
+    bitwise_equal = sha[0] is not None and sha[0] == sha[1]
+    verdicts = [
+        (all_drained, f"not every group drained cleanly: {res1}"),
+        (rcs1 == [0, 0], "phase-1 drain did not exit cleanly everywhere"),
+        (rcs2 == [0, 0], "relaunched job did not finish cleanly"),
+        # Resume must come from the DRAIN-time snapshot, not merely any
+        # periodic one: otherwise a broken save-on-drain path would still
+        # pass (the relaunch would fall back to the last cadence snapshot
+        # and converge bitwise anyway).
+        (resumed == drained_steps,
+         f"relaunch did not resume from the drain snapshots: "
+         f"resumed={resumed} drained={drained_steps}"),
+        (bitwise_equal, "post-resume groups diverged"),
+    ]
+    failures = [msg for ok, msg in verdicts if not ok]
+    if check and failures:
+        raise AssertionError(failures[0])
     return {
         "drained_steps": drained_steps,
         "resumed_from_steps": resumed,
-        "final_steps": [res2[g][step_key] for g in (0, 1)],
+        "final_steps": [(res2[g] or {}).get(step_key) for g in (0, 1)],
+        "bitwise_equal": bitwise_equal,
+        "failures": failures,
         "drain": res1,
         "resume": res2,
         "wall_s": time.monotonic() - t0,
     }
+
+
+def _drain_all(lighthouse: str, n_groups: int) -> dict:
+    """One operator ``drain_all`` at ``lighthouse`` (as
+    ``tools/drills.py:514-527`` sends it); raises unless it reached every
+    one of the ``n_groups`` members' managers. Returns its report."""
+    from torchft_tpu_torch.coordination import LighthouseClient
+
+    client = LighthouseClient(lighthouse)
+    try:
+        report = client.drain_all()
+    finally:
+        client.close()
+    _require(
+        report["n_members"] == n_groups and report["n_sent"] == n_groups,
+        f"drain_all did not reach every member: {report}",
+    )
+    return report
 
 
 def _lighthouse_replica_id(address: str, group: int) -> str:
